@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout (it imports ``src/repro_torch`` and
+builds the CUDA kernels from the sources there).  Phases, each fatal on
+failure -- nothing is caught, and nothing falls back to a plain version:
+
+1. The card: fail at once without CUDA; print ``nvidia-smi``'s name and
+   power limit.
+2. Build every kernel of the path with ``nvcc`` (sm_90a) and print the
+   seconds it took.
+3. Hold each kernel bitwise against its plain PyTorch version on the
+   card, at every leaf layout the main path gives it, and time both
+   with CUDA events (median of 20) at the largest (the embedding).
+4. Cross-check: one step of the smoke config on the card (kernels) and
+   on the CPU (plain versions) from one state and one stream of
+   uniforms; bits exactly, the loss to f32 precision, the shifts within
+   alpha lattice steps and the params within 2 lr, each with a bound on
+   the share of elements beyond f32 noise.
+5. The main path: 3 steps of full-size qwen3-0.6b (float32) through
+   ``init_state``/``build_train_step`` -- DIANA + the blockwise q8 codec
+   + dense aggregation, 4 workers, batch 8, seq 128, AdamW lr 3e-4.
+   Loss finite, ``bits`` equal to the structural count recomputed from
+   the leaf shapes, and each kernel's launch count equal to leaves x
+   workers x steps.  Then a per-phase time breakdown of one more step.
+
+The second-to-last line is the ``kernels`` JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+W, BATCH, SEQ, STEPS, LR = 4, 8, 128, 3, 3e-4
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn, iters=20):
+    """Median device time of ``fn`` over ``iters`` calls (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bits_of(t):
+    return t.contiguous().view(torch.int32)
+
+
+class HostNoise:
+    """Uniforms drawn on the CPU from one seed, handed to any device: the
+    GPU and CPU runs of the cross-check consume identical draws."""
+
+    def __init__(self, seed, device):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device = device
+
+    def uniform(self, leaf, worker, shape):
+        return torch.rand(shape, generator=self.gen).to(self.device)
+
+
+def phase_card():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             f"the root of a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build()
+    secs = time.perf_counter() - t0
+    log(f"build: {len(_build.SOURCES)} CUDA source(s) in {secs:.2f} s")
+    for name, report in _build.BUILD_LOG.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def main_path_layouts(cfg):
+    """{(rows_pad, block)} of every leaf of the main path, largest first."""
+    from repro_torch.kernels.q8ring.ops import DEFAULT_BLOCK_ROWS, q8_layout
+    from repro_torch.models.model import param_specs
+
+    layouts = {}
+    for _, shape, _ in param_specs(cfg):
+        _, block, rows_pad = q8_layout(math.prod(shape), DEFAULT_BLOCK_ROWS)
+        layouts[(rows_pad, block)] = None
+    return sorted(layouts, reverse=True)
+
+
+def phase_kernels(cfg):
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.q8ring.ref import (q8_dequant_add_ref,
+                                                q8_quantize_ref)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layouts = main_path_layouts(cfg)
+    errs = {"q8_quantize_2d": 0.0, "q8_dequant_add_2d": 0.0}
+    for rows, block in layouts:
+        x = torch.randn((rows, 128), generator=gen, device=dev) * 0.02
+        x[:block] = 0.0                         # one all-zero tile
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        q, s = K.q8_quantize_2d(x, u, block_rows=block)
+        qr, sr = q8_quantize_ref(x, u, block=block)
+        torch.cuda.synchronize()
+        check(torch.equal(q, qr) and torch.equal(bits_of(s), bits_of(sr)),
+              f"q8_quantize_2d differs from its plain version at "
+              f"({rows}, 128) block {block}")
+        errs["q8_quantize_2d"] = max(
+            errs["q8_quantize_2d"],
+            (q.int() - qr.int()).abs().max().item(),
+            (s - sr).abs().max().item())
+        acc = torch.randn((rows, 128), generator=gen, device=dev)
+        for a in (None, acc):
+            out = K.q8_dequant_add_2d(q, s, a, block_rows=block)
+            ref = q8_dequant_add_ref(q, s, a, block=block)
+            torch.cuda.synchronize()
+            check(torch.equal(bits_of(out), bits_of(ref)),
+                  f"q8_dequant_add_2d (acc={'yes' if a is not None else 'no'})"
+                  f" differs from its plain version at ({rows}, 128) block "
+                  f"{block}")
+            errs["q8_dequant_add_2d"] = max(errs["q8_dequant_add_2d"],
+                                            (out - ref).abs().max().item())
+        log(f"kernels: bitwise equal to plain at ({rows}, 128) block {block}")
+        del x, u, q, s, qr, sr, acc, out, ref
+
+    # timing at the largest layout (the tied embedding)
+    rows, block = layouts[0]
+    n = rows * 128
+    nb = rows // block
+    x = torch.randn((rows, 128), generator=gen, device=dev) * 0.02
+    u = torch.rand((rows, 128), generator=gen, device=dev)
+    acc = torch.randn((rows, 128), generator=gen, device=dev)
+    q, s = K.q8_quantize_2d(x, u, block_rows=block)
+
+    # the one PyTorch call that computes decode's form (no accumulator):
+    # int8 promotes to f32 exactly, then one rounded product per element
+    def deq_library():
+        return torch.mul(q.view(nb, block * 128), s)
+
+    lib = deq_library().view(rows, 128)
+    deq = K.q8_dequant_add_2d(q, s, None, block_rows=block)
+    torch.cuda.synchronize()
+    check(torch.equal(bits_of(lib), bits_of(deq)),
+          "torch.mul(q, scale) differs from q8_dequant_add_2d without an "
+          "accumulator")
+    del lib, deq
+    t = {
+        "quant": time_ms(lambda: K.q8_quantize_2d(x, u, block_rows=block)),
+        "quant_plain": time_ms(lambda: q8_quantize_ref(x, u, block=block)),
+        "deq": time_ms(lambda: K.q8_dequant_add_2d(q, s, None,
+                                                   block_rows=block)),
+        "deq_plain": time_ms(lambda: q8_dequant_add_ref(q, s, None,
+                                                        block=block)),
+        "deq_library": time_ms(deq_library),
+        "deq_acc": time_ms(lambda: K.q8_dequant_add_2d(q, s, acc,
+                                                       block_rows=block)),
+        "deq_acc_plain": time_ms(lambda: q8_dequant_add_ref(q, s, acc,
+                                                            block=block)),
+    }
+    # bytes: each input read once, each output written once
+    qb, qby = bound_ms(9 * n + 4 * nb, 7 * n)       # abs,max,div,floor,sub,cmp,add
+    db, dby = bound_ms(5 * n + 4 * nb, n)           # one multiply
+    dab, _ = bound_ms(9 * n + 4 * nb, 2 * n)        # one fma
+    log(f"timing at ({rows}, 128) block {block}, median of 20 (ms): "
+        f"quantize {t['quant']:.4f} (plain {t['quant_plain']:.4f}, bound "
+        f"{qb:.4f}, no library call); dequant without accumulator "
+        f"{t['deq']:.4f} (plain {t['deq_plain']:.4f}, library torch.mul "
+        f"{t['deq_library']:.4f} bitwise equal, bound {db:.4f}); dequant "
+        f"with accumulator {t['deq_acc']:.4f} (plain "
+        f"{t['deq_acc_plain']:.4f}, bound {dab:.4f}, no library call)")
+    del x, u, acc, q, s
+    torch.cuda.empty_cache()
+    return [
+        {"name": "q8_quantize_2d", "route": "cuda",
+         "source": "src/repro_torch/kernels/q8ring/csrc/q8ring.cu",
+         "replaces": "src/repro/kernels/q8ring/kernel.py:75",
+         "max_abs_err": errs["q8_quantize_2d"], "ms": t["quant"],
+         "plain_ms": t["quant_plain"], "bound_ms": qb, "bound_by": qby,
+         "library_ms": None},
+        {"name": "q8_dequant_add_2d", "route": "cuda",
+         "source": "src/repro_torch/kernels/q8ring/csrc/q8ring.cu",
+         "replaces": "src/repro/kernels/q8ring/kernel.py:136",
+         "max_abs_err": errs["q8_dequant_add_2d"], "ms": t["deq"],
+         "plain_ms": t["deq_plain"], "bound_ms": db, "bound_by": dby,
+         "library_ms": t["deq_library"]},
+    ]
+
+
+def _slice_configs(cfg):
+    from repro_torch.configs.base import CompressionConfig, TrainConfig
+
+    comp = CompressionConfig(enabled=True, compressor="q8_block",
+                             shift_rule="diana", comm_mode="dense")
+    return TrainConfig(learning_rate=LR, total_steps=STEPS,
+                       warmup_steps=1, compression=comp)
+
+
+def lattice(msg, block_rows=64):
+    """Per-element lattice step of W-stacked decoded q8 messages: each
+    worker's leaf flattened and tiled as FusedQ8 tiles it, max|m| / 127
+    per tile (the tile's largest element quantizes to +-127)."""
+    from repro_torch.kernels.q8ring.ops import LANE, q8_layout
+
+    w, d = msg.shape[0], msg[0].numel()
+    _, block, rows_pad = q8_layout(d, block_rows)
+    flat = torch.nn.functional.pad(msg.reshape(w, d).abs(),
+                                   (0, rows_pad * LANE - d))
+    step = flat.reshape(w, -1, block * LANE).amax(dim=2, keepdim=True) / 127
+    return (step.expand(-1, -1, block * LANE).reshape(w, -1)[:, :d]
+            .reshape(msg.shape))
+
+
+def phase_cross_check():
+    """One smoke-config step on the card and on the CPU, same state and
+    uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
+
+    The gradients differ by f32 rounding (cuBLAS against the CPU's
+    products), and where ``frac(x / scale)`` lies that close to its
+    uniform the two sides round to neighbouring lattice points.  So:
+    every shift element within alpha lattice steps of its tile (plus f32
+    noise), at most RARE of them that far off; every param within 2 lr
+    (AdamW's first step normalises g / (|g| + eps)), at most 1e-3 of
+    them off by more than f32 noise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import build_train_step, init_state
+
+    TIGHT, RARE = 1e-5, 1e-4   # f32 noise per leaf max; share of flips
+    cfg = get_smoke_config("qwen3-0.6b").with_(dtype="float32")
+    tcfg = _slice_configs(cfg)
+    alpha = tcfg.compression.shift_alpha
+    batch = TokenStream(cfg, 32, BATCH).batch(0)
+    s0 = init_state(0, cfg, tcfg, W, "cpu")
+
+    def on(tree, dev):   # a copy: h and h_bar are updated in place
+        return {k: v.to(dev, copy=True) for k, v in tree.items()}
+
+    results = {}
+    for dev in ("cpu", "cuda"):
+        state = s0._replace(
+            params=on(s0.params, dev),
+            opt=type(s0.opt)(0, on(s0.opt.m, dev), on(s0.opt.v, dev)),
+            h=on(s0.h, dev), h_bar=on(s0.h_bar, dev),
+            noise=HostNoise(1, dev))
+        state, m = build_train_step(cfg, tcfg, W)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        results[dev] = (state, m)
+    (sc, mc), (sg, mg) = results["cpu"], results["cuda"]
+    check(mg["bits"].item() == mc["bits"].item(), "cross-check: bits differ")
+    lc, lg = mc["loss"].item(), mg["loss"].item()
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"cross-check: loss {lg} vs {lc}")
+
+    counts = {}
+    for name in ("h", "h_bar"):
+        flipped = total = 0
+        for k, h1 in sc.h.items():
+            lat = lattice((h1 - s0.h[k]) / alpha)   # the CPU's messages
+            if name == "h_bar":      # a flip moves the mean by lat / W
+                lat = lat.amax(dim=0)
+            ref = getattr(sc, name)[k]
+            d = (getattr(sg, name)[k].cpu() - ref).abs()
+            noise = TIGHT * ref.abs().max().item()
+            check(bool((d <= alpha * lat * 1.001 + noise).all()),
+                  f"cross-check: {name}[{k}] beyond alpha lattice steps")
+            flipped += int((d > noise).sum())
+            total += d.numel()
+        check(flipped <= RARE * total,
+              f"cross-check: {flipped} of {total} {name} elements flipped")
+        counts[name] = (flipped, total)
+    off = total = 0
+    worst = 0.0
+    for k, ref in sc.params.items():
+        d = (sg.params[k].cpu() - ref).abs()
+        worst = max(worst, d.max().item())
+        off += int((d > TIGHT * ref.abs().max().item()).sum())
+        total += d.numel()
+    check(worst <= 2 * LR, f"cross-check: params differ by {worst}")
+    check(off <= 1e-3 * total,
+          f"cross-check: {off} of {total} params beyond f32 noise")
+    log(f"cross-check (smoke config, 1 step, GPU vs CPU): loss {lg:.6f} vs "
+        f"{lc:.6f}, bits {mg['bits'].item():.0f} equal; elements one "
+        f"lattice step off: h {counts['h'][0]} of {counts['h'][1]}, h_bar "
+        f"{counts['h_bar'][0]} of {counts['h_bar'][1]}; params beyond f32 "
+        f"noise {off} of {total}, max |diff| {worst:.3e}")
+
+
+def structural_bits(cfg, steps):
+    """The f32 bit counter the step must report, from leaf shapes alone."""
+    from repro_torch.kernels.q8ring.ops import q8_layout
+    from repro_torch.models.model import param_specs
+
+    step_bits = np.float32(0)
+    for _, shape, _ in param_specs(cfg):
+        _, block, rows_pad = q8_layout(math.prod(shape))
+        leaf = W * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
+        step_bits = np.float32(step_bits + np.float32(leaf))
+    total = np.float32(0)
+    for _ in range(steps):
+        total = np.float32(total + step_bits)
+    return float(total)
+
+
+def phase_main_path(cfg, kernels):
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.launch.train import build_train_step, init_state
+
+    tcfg = _slice_configs(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(0, cfg, tcfg, W)            # on the CUDA device
+    step = build_train_step(cfg, tcfg, W)
+    stream = TokenStream(cfg, SEQ, BATCH)
+    batches = [stream.batch(i, "cuda") for i in range(STEPS + 1)]
+    torch.cuda.synchronize()
+
+    wrappers = {"q8_quantize_2d": K.q8_quantize_2d,
+                "q8_dequant_add_2d": K.q8_dequant_add_2d}
+    for fn in wrappers.values():
+        fn.launches = 0
+    step_s, losses = [], []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    leaves = len(state.params)
+    expect = leaves * W * STEPS
+    check(all(math.isfinite(v) for v in losses), f"loss not finite: {losses}")
+    check(all(torch.isfinite(p).all().item() for p in state.params.values()),
+          "params not finite")
+    check(metrics["bits"].item() == structural_bits(cfg, STEPS),
+          f"bits {metrics['bits'].item()} != structural "
+          f"{structural_bits(cfg, STEPS)}")
+    for n, c in launches.items():
+        check(c == expect, f"{n} launched {c} times, expected {leaves} leaves "
+                           f"x {W} workers x {STEPS} steps = {expect}")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    log(f"main path: qwen3-0.6b full size, {cfg.n_layers} layers, "
+        f"{sum(p.numel() for p in state.params.values()):,} params, "
+        f"{leaves} leaves, w={W}, batch {BATCH}, seq {SEQ}")
+    log(f"main path: losses {losses}; bits {metrics['bits'].item():.0f} "
+        f"(structural); launches {launches} (= {expect} each)")
+    log(f"main path: step seconds {[round(s, 4) for s in step_s]}; peak "
+        f"memory allocated {peak / 2**30:.2f} GiB")
+    phase_breakdown(cfg, tcfg, state, batches[STEPS])
+
+
+def phase_breakdown(cfg, tcfg, state, batch):
+    """Device time of each phase of one more step, run piece by piece."""
+    from repro_torch.comm.channel import make_channel
+    from repro_torch.dist.worker_grads import per_worker_grads, split_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import make_optimizer
+
+    cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
+    q, rule = tcfg.compression.make()
+    channel = make_channel(tcfg.compression)
+    optimizer = make_optimizer(tcfg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (grads, _, _), t_grads = timed(lambda: per_worker_grads(
+        lambda p, b: M.train_loss(p, cfg, b), state.params,
+        split_batch(batch, W)))
+    (g_bar, _, _, _), t_round = timed(lambda: rule.round(
+        q, state.noise, grads, state.h, state.h_bar, channel))
+    del grads
+    _, t_opt = timed(lambda: optimizer.update(g_bar, state.opt, state.params))
+    total = t_grads + t_round + t_opt
+    log(f"breakdown (s): grads {t_grads:.4f} ({t_grads / total:.1%}), "
+        f"round {t_round:.4f} ({t_round / total:.1%}), adamw {t_opt:.4f} "
+        f"({t_opt / total:.1%})")
+
+
+def main():
+    card = phase_card()
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-0.6b").with_(dtype="float32")
+    phase_build()
+    kernels = phase_kernels(cfg)
+    phase_cross_check()
+    phase_main_path(cfg, kernels)
+    log(card)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,114 @@
+"""The Channel: one transport abstraction for compressed messages -- the
+port of the reference's ``repro/comm/channel.py`` for this slice.
+
+``SimChannel`` is the parameter server (exact worker mean);
+``MeshChannel`` in ``dense`` mode is the production aggregation of the
+stacked-worker step (also the exact mean, ``dist.collectives``).  The
+other aggregation formats and channels raise ``NotImplementedError``,
+naming the ROADMAP item that adds them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.dist.collectives import dense_mean
+
+Tree = Dict[str, torch.Tensor]
+
+#: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
+_NOT_PORTED = {
+    "randk_shared": "ROADMAP queue 1, item 5 (collectives)",
+    "q8_ring": "ROADMAP queue 1, item 5 (collectives)",
+    "q8_ring_fused": "ROADMAP queue 1, item 5 (collectives)",
+    "ef21": "ROADMAP queue 1, item 6 (training step and CLI)",
+    "efbv": "ROADMAP queue 1, item 6 (training step and CLI)",
+    "q8_ring_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
+    "efbv_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
+    "q8_ring_fused_vjp": "ROADMAP queue 1, item 8 (fused backward encode)",
+    "auto": "ROADMAP queue 1, item 11 (tune)",
+}
+
+#: every comm mode the reference accepts: the ported ones first
+CHANNEL_MODES = ("dense", "sim") + tuple(_NOT_PORTED)
+
+
+def _check_ported(mode: str):
+    """Raise for a comm mode this slice does not run: unported ones name
+    their ROADMAP item, unknown ones every accepted mode."""
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(
+            f"comm mode {mode!r} is not ported yet: {_NOT_PORTED[mode]}"
+        )
+    if mode not in CHANNEL_MODES:
+        raise ValueError(f"unknown comm mode {mode!r}; have channel modes "
+                         f"{CHANNEL_MODES}")
+
+
+class Channel:
+    """Transport for compressed messages between workers and master."""
+
+    def reduce_mean(self, noise, wtree: Tree) -> Tree:
+        raise NotImplementedError
+
+    def shift_round(self, rule, q, noise, wgrads, h, h_bar):
+        """One shift-rule round: the rule's whole-tree message, its aux
+        draw, ONE aggregation of the message tree, then ``apply``.
+        Returns ``(g_bar, h_new, h_bar_new, bits)``."""
+        m, bits = rule.message(q, noise, wgrads, h)
+        aux, extra = rule.aux(noise, wgrads, h)
+        m_bar = self.reduce_mean(noise, m)
+        g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar, aux)
+        return g_bar, h_new, hb_new, bits + extra
+
+
+@dataclass(frozen=True, eq=False)
+class SimChannel(Channel):
+    """Parameter server: the master sees every decoded message exactly,
+    so aggregation is the exact mean over the worker axis."""
+
+    def reduce_mean(self, noise, wtree):
+        return dense_mean(wtree)
+
+
+@dataclass(frozen=True, eq=False)
+class MeshChannel(Channel):
+    """Production channel; ``mode`` picks the aggregation wire format."""
+
+    mode: str = "dense"
+
+    def __post_init__(self):
+        _check_ported(self.mode)
+        if self.mode != "dense":
+            raise ValueError(f"{self.mode!r} is not an aggregation mode")
+
+    def reduce_mean(self, noise, wtree):
+        return dense_mean(wtree)
+
+
+def make_channel(mode_or_cfg="dense") -> Channel:
+    """Build a Channel from a comm-mode string or a CompressionConfig.
+    A disabled config aggregates densely; unknown modes raise naming
+    every accepted mode, unported ones name their ROADMAP item."""
+    comm_mode = getattr(mode_or_cfg, "comm_mode", mode_or_cfg)
+    if not getattr(mode_or_cfg, "enabled", True):
+        comm_mode = "dense"
+    _check_ported(comm_mode)
+    if comm_mode == "sim":
+        return SimChannel()
+    return MeshChannel(mode=comm_mode)
+
+
+def resync_h_bar(h: Optional[Tree], h_bar: Optional[Tree], step: int,
+                 every: int) -> Optional[Tree]:
+    """Every ``every`` rounds (on steps with ``step % every == every - 1``)
+    replace ``h_bar`` with the dense mean of the current shifts; a no-op
+    for ``every <= 0`` and stateless rules."""
+    if every <= 0 or h is None or h_bar is None:
+        return h_bar
+    if step % every != every - 1:
+        return h_bar
+    return dense_mean(h)

@@ -1,0 +1,154 @@
+"""Config dataclasses: architecture + run configuration.
+
+A copy of the reference's ``repro/configs/base.py`` (the port imports
+nothing of the JAX package), with the same fields and defaults so a
+config means the same run on both sides.  ``CompressionConfig.make``
+builds the port's codec and shift rule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+
+    # attention options
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0        # 0 = full attention; >0 = window size
+    attn_q_chunk: int = 512        # key-chunk size of the online softmax
+
+    # MLA (DeepSeek-V2)
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
+
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
+    moe_group_size: int = 4096
+
+    # SSM / RWKV / hybrid
+    ssm_state: int = 0
+    rwkv_head_dim: int = 64
+    attn_every: int = 0
+    conv_kernel: int = 4
+
+    # encoder-decoder (audio)
+    is_encoder_decoder: bool = False
+    n_enc_layers: int = 0
+
+    # modality frontends
+    modality: str = "text"         # text | vision_prefix | audio_frames
+    num_prefix_tokens: int = 576
+
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"        # activation/param dtype
+    source: str = ""               # citation for the config
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self)
+
+
+@dataclass(frozen=True)
+class CompressionConfig:
+    """How the DCGD-SHIFT layer is wired into the training step (same
+    fields as the reference).  This slice of the port runs the ``dense``
+    and ``sim`` channels, the ``fixed``/``dcgd``/``diana`` rules and the
+    ``identity``/``zero``/``q8_block`` codecs; the other values raise
+    ``NotImplementedError`` where they are resolved."""
+    enabled: bool = True
+    compressor: str = "natural"
+    compressor_kwargs: tuple = ()  # tuple of (key, value) pairs (hashable)
+    shift_rule: str = "diana"
+    shift_alpha: float = 0.125     # DIANA alpha
+    shift_p: float = 0.05
+    gdci_eta: float = 0.5
+    efbv_eta: float = 1.0
+    efbv_nu: float = 1.0
+    comm_mode: str = "dense"
+    randk_q: float = 0.05
+    overlap_bucket_bytes: int = 4 << 20
+    q8_block_rows: int = 64
+    drift_resync_every: int = 0    # dense h_bar resync period (0 = off)
+    moe_wire: str = "none"
+    act_wire: str = "none"
+    model_wire: str = "none"
+    publish_every: int = 1
+
+    @property
+    def effective_shift_rule(self) -> str:
+        """The update rule actually run (the ``ef21``/``efbv`` comm
+        modes imply their rule)."""
+        if self.comm_mode == "ef21":
+            return "ef21"
+        if self.comm_mode in ("efbv", "efbv_overlap"):
+            return "efbv"
+        return self.shift_rule
+
+    def make(self):
+        """Build the ``(compressor, rule)`` pair this config describes."""
+        from repro_torch.core.compressors import make_compressor
+        from repro_torch.core.shift_rules import make_shift_rule
+
+        q = make_compressor(self.compressor, **dict(self.compressor_kwargs))
+        rule_name = self.effective_shift_rule
+        rule_kwargs = {
+            "fixed": {},
+            "dcgd": {},
+            "diana": dict(alpha=self.shift_alpha),
+        }
+        if rule_name not in rule_kwargs:
+            return q, make_shift_rule(rule_name)  # raises, naming the queue
+        return q, make_shift_rule(rule_name, **rule_kwargs[rule_name])
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    optimizer: str = "adamw"       # adamw
+    train_attn_chunk: int = 256    # key-chunk for TRAIN attention (<=0:
+                                   # keep the arch default)
+    remat: bool = True
+    zero_opt_state: bool = True
+    fsdp_params: bool = False
+    compression: CompressionConfig = field(default_factory=CompressionConfig)

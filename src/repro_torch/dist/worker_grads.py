@@ -1,0 +1,57 @@
+"""Per-worker gradients -- "worker i computes grad f_i" (Alg. 1 l.5).
+
+Worker i owns rows ``[i*B/W, (i+1)*B/W)`` of the global batch.  The
+reference vmaps the loss gradient over the worker axis; here the
+workers run one forward/backward pass each and write into preallocated
+``(W, *param.shape)`` gradient buffers, whose mean over axis 0 is the
+full-batch gradient.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+
+def split_batch(batch: Dict[str, torch.Tensor], w: int):
+    """Reshape every leaf's leading batch dim ``B`` to ``(W, B/W, ...)``;
+    worker i's shard is exactly ``leaf[i*B/W:(i+1)*B/W]``."""
+    out = {}
+    for k, a in batch.items():
+        b = a.shape[0]
+        if b % w:
+            raise ValueError(f"batch dim {b} not divisible by {w} workers "
+                             f"(leaf {k!r} shape {tuple(a.shape)})")
+        out[k] = a.reshape(w, b // w, *a.shape[1:])
+    return out
+
+
+def per_worker_grads(loss_fn: Callable, params: Dict[str, torch.Tensor],
+                     wbatch: Dict[str, torch.Tensor]
+                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Any]:
+    """Stacked per-worker gradients of ``loss_fn(params, batch_i)``.
+
+    ``loss_fn`` returns ``(loss, metrics)``.  Returns ``(wgrads, loss,
+    metrics)``: ``wgrads`` leaves shaped ``(W, *param.shape)``, ``loss``
+    the mean worker loss, ``metrics`` averaged over workers.  ``params``
+    are not modified and need not require grad.
+    """
+    w = next(iter(wbatch.values())).shape[0]
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    wgrads = {k: torch.empty((w, *p.shape), dtype=p.dtype, device=p.device)
+              for k, p in params.items()}
+    losses, metrics = [], []
+    for j in range(w):
+        with torch.enable_grad():
+            loss, aux = loss_fn(leaves, {k: v[j] for k, v in wbatch.items()})
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        for buf, g in zip(wgrads.values(), grads):
+            buf[j].copy_(g)
+        del grads
+        losses.append(loss.detach())
+        metrics.append({k: v.detach() for k, v in aux.items()})
+    loss = torch.stack(losses).mean()
+    mean_metrics = {k: torch.stack([m[k] for m in metrics]).mean()
+                    for k in metrics[0]}
+    return wgrads, loss, mean_metrics

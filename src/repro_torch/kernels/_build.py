@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source (``*.cu`` under a ``csrc/`` directory of the package)
+is compiled on first use by ``nvcc`` into a shared library with a plain
+C interface and loaded with ``ctypes`` -- no PyTorch headers, so a build
+takes seconds.  Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17
+-O3``, and deliberately no ``--use_fast_math`` (the q8 kernels rely on
+IEEE division and on denormals).
+
+Libraries land in ``kernels/build/`` next to this file (ignored by git),
+named by a hash of their source, so an edited source is rebuilt and a
+stale library is never loaded.  Nothing here runs at import time: the
+CPU tests import every module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR / "build"
+
+#: every CUDA source of the port, by library name
+SOURCES: Dict[str, Path] = {
+    "q8ring": KERNELS_DIR / "q8ring" / "csrc" / "q8ring.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+#: ptxas resource report (registers, shared memory, spills) per library
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one library; returns ``(process, tmp, out)``, or
+    ``None`` when the library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+    BUILD_LOG[name] = log
+    os.replace(tmp, out)
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> None:
+    """Compile the named libraries, one ``nvcc`` per source, all started
+    together.  Already built libraries are skipped."""
+    with _LOCK:
+        started = {n: _start(n) for n in names}
+        for n, s in started.items():
+            if s is not None:
+                _finish(n, s)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, building it first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _LOCK:
+        if name not in _LOADED:
+            _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _LOADED[name]

@@ -1,0 +1,136 @@
+"""Dense decoder LM assembly -- the dense path of the reference's
+``repro/models/model.py``:
+
+    init_params(cfg, generator=, device=)  -> params
+    forward_train(params, cfg, batch)      -> (logits, aux)
+    train_loss(params, cfg, batch)         -> (loss, metrics)
+    count_params_analytic(cfg)             -> int
+
+Params are a flat dict ``{path: tensor}`` keyed by the reference's
+pytree path (``"blocks/mlp/w_up"``) and ordered as
+``jax.tree_util.tree_flatten`` orders the reference's tree (sorted keys
+at every level).  Block leaves keep the reference's stacked ``(L, ...)``
+layout: the wire codecs encode whole leaves, and the tile grid of the
+blockwise q8 codec (one scale per 64 x 128 elements) spans layer
+boundaries, so per-layer parameters would change the wire format.  The
+forward pass unbinds each stacked leaf into per-layer views once.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, torch.Tensor]
+
+_BLOCKS = "blocks/"
+
+
+def _dense_block_specs(cfg: ModelConfig):
+    """(relative path, shape, init) of one dense block; init is a normal
+    std, or ``"ones"``/``"zeros"``."""
+    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    specs = [
+        ("attn/wq", (d, h * dh), 0.02),
+        ("attn/wk", (d, kv * dh), 0.02),
+        ("attn/wv", (d, kv * dh), 0.02),
+        ("attn/wo", (h * dh, d), out_std),
+        ("attn_norm/scale", (d,), "ones"),
+        ("mlp_norm/scale", (d,), "ones"),
+        ("mlp/w_gate", (d, f), 0.02),
+        ("mlp/w_up", (d, f), 0.02),
+        ("mlp/w_down", (f, d), out_std),
+    ]
+    if cfg.qkv_bias:
+        specs += [("attn/bq", (h * dh,), "zeros"),
+                  ("attn/bk", (kv * dh,), "zeros"),
+                  ("attn/bv", (kv * dh,), "zeros")]
+    if cfg.qk_norm:
+        specs += [("attn/q_norm/scale", (dh,), "ones"),
+                  ("attn/k_norm/scale", (dh,), "ones")]
+    return specs
+
+
+def param_specs(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...], object]]:
+    """Every leaf ``(path, shape, init)`` in the reference's flatten order."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} is not ported yet: ROADMAP queue 1, "
+            f"item 9 (other architectures)"
+        )
+    specs = [(_BLOCKS + name, (cfg.n_layers, *shape), init)
+             for name, shape, init in _dense_block_specs(cfg)]
+    specs += [("embed/table", (cfg.vocab_size, cfg.d_model), 0.02),
+              ("final_norm/scale", (cfg.d_model,), "ones")]
+    if not cfg.tie_embeddings:
+        specs.append(("head/w", (cfg.d_model, cfg.vocab_size), 0.02))
+    # jax.tree_util orders dict keys sorted at every level
+    return sorted(specs, key=lambda s: s[0].split("/"))
+
+
+def leaf_paths(cfg: ModelConfig) -> List[str]:
+    return [path for path, _, _ in param_specs(cfg)]
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device) -> Params:
+    """Random params with the reference's distributions (normal with the
+    same std, ones for norm scales); the draws are torch's, not JAX's --
+    ``repro_torch.weights.params_from_jax`` carries the reference's."""
+    dtype = getattr(torch, cfg.dtype)
+    params = {}
+    for path, shape, init in param_specs(cfg):
+        if init == "ones":
+            t = torch.ones(shape, dtype=dtype, device=device)
+        elif init == "zeros":
+            t = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device).mul_(init).to(dtype)
+        params[path] = t
+    return params
+
+
+def count_params_analytic(cfg: ModelConfig) -> int:
+    return sum(math.prod(shape) for _, shape, _ in param_specs(cfg))
+
+
+def _dense_block_fwd(p, x, cfg: ModelConfig):
+    x = x + L.attention_apply(_sub(p, "attn/"),
+                              L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
+                              cfg)
+    x = x + L.mlp_apply(_sub(p, "mlp/"),
+                        L.rmsnorm(p["mlp_norm/scale"], x, cfg.norm_eps))
+    return x
+
+
+def _sub(p: Params, prefix: str) -> Params:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def forward_train(params: Params, cfg: ModelConfig, batch
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits over text positions, aux_loss)."""
+    x = L.embed(params["embed/table"], batch["tokens"])
+    stacked = {k[len(_BLOCKS):]: v.unbind(0)
+               for k, v in params.items() if k.startswith(_BLOCKS)}
+    for layer in range(cfg.n_layers):
+        x = _dense_block_fwd({k: v[layer] for k, v in stacked.items()}, x, cfg)
+    x = L.rmsnorm(params["final_norm/scale"], x, cfg.norm_eps)
+    logits = L.lm_head(params, x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: Params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy (+ aux).  Returns ``(loss, metrics)``."""
+    logits, aux = forward_train(params, cfg, batch)
+    tokens = batch["tokens"]
+    loss = L.softmax_xent(logits[:, :-1], tokens[:, 1:])
+    return loss + aux, {"xent": loss, "aux": aux}
