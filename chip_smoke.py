@@ -12,19 +12,27 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 2. Build every kernel of the path with ``nvcc`` (sm_90a) and print the
    seconds it took.
 3. Hold each kernel bitwise against its plain PyTorch version on the
-   card, at every leaf layout the main path gives it, and time both
-   with CUDA events (median of 20) at the largest (the embedding).
-4. Cross-check: one step of the smoke config on the card (kernels) and
-   on the CPU (plain versions) from one state and one stream of
-   uniforms; bits exactly, the loss to f32 precision, the shifts within
-   alpha lattice steps and the params within 2 lr, each with a bound on
-   the share of elements beyond f32 noise.
-5. The main path: 3 steps of full-size qwen3-0.6b (float32) through
-   ``init_state``/``build_train_step`` -- DIANA + the blockwise q8 codec
-   + dense aggregation, 4 workers, batch 8, seq 128, AdamW lr 3e-4.
-   Loss finite, ``bits`` equal to the structural count recomputed from
-   the leaf shapes, and each kernel's launch count equal to leaves x
-   workers x steps.  Then a per-phase time breakdown of one more step.
+   card, at every layout the main paths give it (the codec's leaf
+   layouts; the ring's chunk layouts for 4 positions, every chunk id),
+   and time both with CUDA events (median of 20) at the largest (the
+   embedding's).
+4. Cross-check, in the ``dense`` and the ``q8_ring_fused`` mode: one
+   step of the smoke config on the card (kernels) and on the CPU (plain
+   versions) from one state and one stream of uniforms; bits exactly,
+   the loss to f32 precision, the shifts within a stated number of
+   lattice steps and the params within 2 lr, each with a bound on the
+   share of elements beyond f32 noise.
+5. The dense main path: 3 steps of full-size qwen3-0.6b (float32)
+   through ``init_state``/``build_train_step`` -- DIANA + the blockwise
+   q8 codec + dense aggregation, 4 workers, batch 8, seq 128, AdamW lr
+   3e-4.  Loss finite, ``bits`` equal to the structural count recomputed
+   from the leaf shapes, and each kernel's launch count exactly what the
+   leaves, workers and steps give.  Then a per-phase time breakdown of
+   one more step.
+6. The ring main path: the same 3 steps in ``q8_ring_fused`` mode on a
+   ``HostMesh(data=4)`` -- 4 ring positions on the one card -- with the
+   same checks; the ring's launches are counted too (the chunk
+   quantize, the accumulating dequant, the all-gather decode).
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -45,6 +53,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 W, BATCH, SEQ, STEPS, LR = 4, 8, 128, 3, 3e-4
+RING = 4                    # positions of the emulated data axis
 
 
 def log(msg):
@@ -99,6 +108,9 @@ class HostNoise:
     def uniform(self, leaf, worker, shape):
         return torch.rand(shape, generator=self.gen).to(self.device)
 
+    def ring_uniform(self, leaf, hop, shape):
+        return torch.rand(shape, generator=self.gen).to(self.device)
+
 
 def phase_card():
     if not torch.cuda.is_available():
@@ -141,6 +153,16 @@ def main_path_layouts(cfg):
         _, block, rows_pad = q8_layout(math.prod(shape), DEFAULT_BLOCK_ROWS)
         layouts[(rows_pad, block)] = None
     return sorted(layouts, reverse=True)
+
+
+def ring_layouts(cfg):
+    """{(rows_c, block)} of every leaf's ring chunk at RING positions,
+    largest first."""
+    from repro_torch.kernels.q8ring.ops import ring_chunk_layout
+    from repro_torch.models.model import param_specs
+
+    return sorted({ring_chunk_layout(math.prod(shape), RING)
+                   for _, shape, _ in param_specs(cfg)}, reverse=True)
 
 
 def phase_kernels(cfg):
@@ -243,11 +265,98 @@ def phase_kernels(cfg):
     ]
 
 
-def _slice_configs(cfg):
+def phase_ring_kernels(cfg):
+    """The ring's hop kernels at every ring chunk layout of the main
+    path: the chunk quantize at every chunk id, and the dequant with an
+    accumulator (the receive side), bitwise against their plain
+    versions; then the chunk quantize timed at the embedding's chunk."""
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.q8ring.ref import (q8_dequant_add_ref,
+                                                q8_quantize_chunk_ref)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    layouts = ring_layouts(cfg)
+    ids = torch.arange(RING, dtype=torch.int32, device=dev)
+    err = 0.0
+    for rows, block in layouts:
+        chunks = torch.randn((RING, rows, 128), generator=gen, device=dev)
+        chunks *= 0.02
+        chunks[1, :block] = 0.0                 # one all-zero tile
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        acc = torch.randn((rows, 128), generator=gen, device=dev)
+        for cid in range(RING):
+            q, s = K.q8_quantize_chunk_3d(chunks, u, ids[cid:cid + 1],
+                                          block_rows=block)
+            qr, sr = q8_quantize_chunk_ref(chunks, u, cid, block=block)
+            torch.cuda.synchronize()
+            check(torch.equal(q, qr) and torch.equal(bits_of(s), bits_of(sr)),
+                  f"q8_quantize_chunk_3d differs from its plain version at "
+                  f"({RING}, {rows}, 128) block {block} chunk {cid}")
+            err = max(err, (q.int() - qr.int()).abs().max().item(),
+                      (s - sr).abs().max().item())
+            out = K.q8_dequant_add_2d(q, s, acc, block_rows=block)
+            ref = q8_dequant_add_ref(q, s, acc, block=block)
+            torch.cuda.synchronize()
+            check(torch.equal(bits_of(out), bits_of(ref)),
+                  f"q8_dequant_add_2d (acc=yes) differs from its plain "
+                  f"version at ({rows}, 128) block {block}")
+        log(f"ring kernels: bitwise equal to plain at ({RING}, {rows}, 128) "
+            f"block {block}, chunk ids 0..{RING - 1}")
+        del chunks, u, acc, q, s, qr, sr, out, ref
+
+    rows, block = layouts[0]
+    n = rows * 128
+    nb = rows // block
+    chunks = torch.randn((RING, rows, 128), generator=gen, device=dev) * 0.02
+    u = torch.rand((rows, 128), generator=gen, device=dev)
+    acc = torch.randn((rows, 128), generator=gen, device=dev)
+    cid = 2
+    q, s = K.q8_quantize_chunk_3d(chunks, u, ids[cid:cid + 1],
+                                  block_rows=block)
+    t = {
+        "chunk": time_ms(lambda: K.q8_quantize_chunk_3d(
+            chunks, u, ids[cid:cid + 1], block_rows=block)),
+        "chunk_plain": time_ms(lambda: q8_quantize_chunk_ref(
+            chunks, u, cid, block=block)),
+        # the same tiles through the 2-D kernel: what the chunk read costs
+        "quant_2d": time_ms(lambda: K.q8_quantize_2d(
+            chunks[cid], u, block_rows=block)),
+        # the receive side at the same chunk
+        "deq_acc": time_ms(lambda: K.q8_dequant_add_2d(q, s, acc,
+                                                       block_rows=block)),
+    }
+    # the card does not raise on an id outside [0, n): it reads nothing and
+    # writes q = 0 and NaN scales
+    q, s = K.q8_quantize_chunk_3d(
+        chunks, u, torch.tensor([RING], dtype=torch.int32, device=dev),
+        block_rows=block)
+    check(not q.any().item() and s.isnan().all().item(),
+          "q8_quantize_chunk_3d with an id out of range did not give q = 0 "
+          "and NaN scales")
+    # bytes: the chunk, u and the id read once, q and the scales written once
+    cb, cby = bound_ms(9 * n + 4 * nb + 4, 7 * n)
+    dab, _ = bound_ms(9 * n + 4 * nb, 2 * n)
+    log(f"timing at the ring chunk ({RING}, {rows}, 128) block {block}, "
+        f"median of 20 (ms): chunk quantize {t['chunk']:.4f} (plain "
+        f"{t['chunk_plain']:.4f}, bound {cb:.4f}, no library call); "
+        f"q8_quantize_2d on the same chunk {t['quant_2d']:.4f}; dequant "
+        f"with accumulator {t['deq_acc']:.4f} (bound {dab:.4f})")
+    del chunks, u, acc, q, s
+    torch.cuda.empty_cache()
+    return {"name": "q8_quantize_chunk_3d", "route": "cuda",
+            "source": "src/repro_torch/kernels/q8ring/csrc/q8ring.cu",
+            "replaces": "src/repro/kernels/q8ring/kernel.py:98",
+            "max_abs_err": err, "ms": t["chunk"],
+            "plain_ms": t["chunk_plain"], "bound_ms": cb, "bound_by": cby,
+            "library_ms": None}
+
+
+def _slice_configs(cfg, comm_mode="dense"):
     from repro_torch.configs.base import CompressionConfig, TrainConfig
 
     comp = CompressionConfig(enabled=True, compressor="q8_block",
-                             shift_rule="diana", comm_mode="dense")
+                             shift_rule="diana", comm_mode=comm_mode)
     return TrainConfig(learning_rate=LR, total_steps=STEPS,
                        warmup_steps=1, compression=comp)
 
@@ -267,7 +376,22 @@ def lattice(msg, block_rows=64):
             .reshape(msg.shape))
 
 
-def phase_cross_check():
+def ring_tile_max(step, n, block_rows=64):
+    """Per element, the largest ``step`` over its ring tile: the leaf
+    flattened, zero-padded and cut into n chunks and (block, 128) tiles
+    as the fused ring cuts its buffers (``ring_chunk_layout``)."""
+    from repro_torch.kernels.q8ring.ops import LANE, ring_chunk_layout
+
+    d = step.numel()
+    rows_c, block = ring_chunk_layout(d, n, block_rows)
+    flat = torch.nn.functional.pad(step.reshape(-1),
+                                   (0, n * rows_c * LANE - d))
+    tile = flat.reshape(-1, block * LANE).amax(dim=1, keepdim=True)
+    return (tile.expand(-1, block * LANE).reshape(-1)[:d]
+            .reshape(step.shape))
+
+
+def phase_cross_check(comm_mode):
     """One smoke-config step on the card and on the CPU, same state and
     uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
 
@@ -277,15 +401,35 @@ def phase_cross_check():
     every shift element within alpha lattice steps of its tile (plus f32
     noise), at most RARE of them that far off; every param within 2 lr
     (AdamW's first step normalises g / (|g| + eps)), at most 1e-3 of
-    them off by more than f32 noise."""
+    them off by more than f32 noise.
+
+    The ring (``q8_ring_fused``) quantizes the partial sums of the
+    messages once per hop and once for the all-gather, n times in all,
+    and each may round the other way where a message flipped or the
+    sums differ by f32 rounding.  Let L be the largest message step over
+    the elements of one ring tile.  The tile's partial sums hold at most
+    W messages, each within 127 of its steps, plus the rounding error
+    carried from earlier hops, at most n - 1 ring steps; so the tile's
+    ring step is at most W * L / (1 - (n - 1) / 127).  Each quantization
+    leaves either side within one of its own steps of what it was
+    given, so it parts them by at most two.  So an ``h_bar`` element
+    (alpha times the ring sum over W) moves by at most alpha * (2n + 1)
+    * L / (1 - (n - 1) / 127): 2n ring steps over W, plus the flipped
+    messages' one step each over W.  A flip at a ring tile's maximum
+    moves that tile's scale and so re-rounds much of the tile, so the
+    share of ``h_bar`` elements allowed off is RARE_RING."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
-    TIGHT, RARE = 1e-5, 1e-4   # f32 noise per leaf max; share of flips
+    TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
+    ring = comm_mode != "dense"
     cfg = get_smoke_config("qwen3-0.6b").with_(dtype="float32")
-    tcfg = _slice_configs(cfg)
+    tcfg = _slice_configs(cfg, comm_mode)
     alpha = tcfg.compression.shift_alpha
+    block_rows = tcfg.compression.q8_block_rows
+    ring_growth = (2 * RING + 1) / (1 - (RING - 1) / 127)
     batch = TokenStream(cfg, 32, BATCH).batch(0)
     s0 = init_state(0, cfg, tcfg, W, "cpu")
 
@@ -299,30 +443,42 @@ def phase_cross_check():
             opt=type(s0.opt)(0, on(s0.opt.m, dev), on(s0.opt.v, dev)),
             h=on(s0.h, dev), h_bar=on(s0.h_bar, dev),
             noise=HostNoise(1, dev))
-        state, m = build_train_step(cfg, tcfg, W)(
+        mesh = HostMesh(data=RING if ring else 1, device=dev)
+        state, m = build_train_step(cfg, tcfg, W, mesh)(
             state, {k: v.to(dev) for k, v in batch.items()})
         results[dev] = (state, m)
     (sc, mc), (sg, mg) = results["cpu"], results["cuda"]
-    check(mg["bits"].item() == mc["bits"].item(), "cross-check: bits differ")
+    check(mg["bits"].item() == mc["bits"].item(),
+          f"cross-check {comm_mode}: bits differ")
     lc, lg = mc["loss"].item(), mg["loss"].item()
-    check(abs(lg - lc) <= 1e-5 * abs(lc), f"cross-check: loss {lg} vs {lc}")
+    check(abs(lg - lc) <= 1e-5 * abs(lc),
+          f"cross-check {comm_mode}: loss {lg} vs {lc}")
 
-    counts = {}
+    counts, worst_share = {}, {}
     for name in ("h", "h_bar"):
         flipped = total = 0
+        worst_share[name] = 0.0
         for k, h1 in sc.h.items():
-            lat = lattice((h1 - s0.h[k]) / alpha)   # the CPU's messages
+            lat = lattice((h1 - s0.h[k]) / alpha, block_rows)  # CPU's msgs
             if name == "h_bar":      # a flip moves the mean by lat / W
                 lat = lat.amax(dim=0)
+                if ring:
+                    lat = ring_growth * ring_tile_max(lat, RING, block_rows)
             ref = getattr(sc, name)[k]
             d = (getattr(sg, name)[k].cpu() - ref).abs()
             noise = TIGHT * ref.abs().max().item()
-            check(bool((d <= alpha * lat * 1.001 + noise).all()),
-                  f"cross-check: {name}[{k}] beyond alpha lattice steps")
+            bound = alpha * lat * 1.001 + noise
+            check(bool((d <= bound).all()),
+                  f"cross-check {comm_mode}: {name}[{k}] beyond its lattice "
+                  f"bound")
+            worst_share[name] = max(worst_share[name], torch.where(
+                bound > 0, d / bound, 0.0).max().item())
             flipped += int((d > noise).sum())
             total += d.numel()
-        check(flipped <= RARE * total,
-              f"cross-check: {flipped} of {total} {name} elements flipped")
+        share = RARE_RING if ring and name == "h_bar" else RARE
+        check(flipped <= share * total,
+              f"cross-check {comm_mode}: {flipped} of {total} {name} "
+              f"elements flipped")
         counts[name] = (flipped, total)
     off = total = 0
     worst = 0.0
@@ -331,13 +487,17 @@ def phase_cross_check():
         worst = max(worst, d.max().item())
         off += int((d > TIGHT * ref.abs().max().item()).sum())
         total += d.numel()
-    check(worst <= 2 * LR, f"cross-check: params differ by {worst}")
+    check(worst <= 2 * LR, f"cross-check {comm_mode}: params differ by "
+                           f"{worst}")
     check(off <= 1e-3 * total,
-          f"cross-check: {off} of {total} params beyond f32 noise")
-    log(f"cross-check (smoke config, 1 step, GPU vs CPU): loss {lg:.6f} vs "
-        f"{lc:.6f}, bits {mg['bits'].item():.0f} equal; elements one "
-        f"lattice step off: h {counts['h'][0]} of {counts['h'][1]}, h_bar "
-        f"{counts['h_bar'][0]} of {counts['h_bar'][1]}; params beyond f32 "
+          f"cross-check {comm_mode}: {off} of {total} params beyond f32 "
+          f"noise")
+    log(f"cross-check {comm_mode} (smoke config, 1 step, GPU vs CPU): loss "
+        f"{lg:.6f} vs {lc:.6f}, bits {mg['bits'].item():.0f} equal; "
+        f"elements off: h {counts['h'][0]} of {counts['h'][1]}, h_bar "
+        f"{counts['h_bar'][0]} of {counts['h_bar'][1]}; largest |diff| / "
+        f"bound: h {worst_share['h']:.3f}, h_bar {worst_share['h_bar']:.3f}"
+        f"; params beyond f32 "
         f"noise {off} of {total}, max |diff| {worst:.3e}")
 
 
@@ -357,23 +517,32 @@ def structural_bits(cfg, steps):
     return float(total)
 
 
-def phase_main_path(cfg, kernels):
+def phase_main_path(cfg, comm_mode):
+    """3 full-size steps in ``comm_mode`` (``dense``, or ``q8_ring_fused``
+    over a ``HostMesh(data=RING)`` on the card); returns the kernels'
+    launch counts of those steps."""
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
-    tcfg = _slice_configs(cfg)
+    ring = comm_mode != "dense"
+    n = RING if ring else 1
+    tcfg = _slice_configs(cfg, comm_mode)
+    mesh = HostMesh(data=n, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     state = init_state(0, cfg, tcfg, W)            # on the CUDA device
-    step = build_train_step(cfg, tcfg, W)
+    step = build_train_step(cfg, tcfg, W, mesh)
     stream = TokenStream(cfg, SEQ, BATCH)
     batches = [stream.batch(i, "cuda") for i in range(STEPS + 1)]
     torch.cuda.synchronize()
 
     wrappers = {"q8_quantize_2d": K.q8_quantize_2d,
+                "q8_quantize_chunk_3d": K.q8_quantize_chunk_3d,
                 "q8_dequant_add_2d": K.q8_dequant_add_2d}
     for fn in wrappers.values():
         fn.launches = 0
+    K.q8_dequant_add_2d.acc_launches = 0
     step_s, losses = [], []
     for i in range(STEPS):
         t0 = time.perf_counter()
@@ -381,34 +550,48 @@ def phase_main_path(cfg, kernels):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    acc_launches = K.q8_dequant_add_2d.acc_launches
     peak = torch.cuda.max_memory_allocated()
 
+    # leaves x workers x steps for the message encode and decode; per leaf
+    # and step the ring adds n chunk quantizes at each of its n positions,
+    # n - 1 accumulating dequants at each, and one all-gather decode per
+    # owner
     leaves = len(state.params)
-    expect = leaves * W * STEPS
+    msgs = leaves * W * STEPS
+    expect = {"q8_quantize_2d": msgs,
+              "q8_quantize_chunk_3d": leaves * n * n * STEPS if ring else 0,
+              "q8_dequant_add_2d": msgs + (leaves * n * n * STEPS if ring
+                                           else 0)}
+    expect_acc = leaves * n * (n - 1) * STEPS if ring else 0
     check(all(math.isfinite(v) for v in losses), f"loss not finite: {losses}")
     check(all(torch.isfinite(p).all().item() for p in state.params.values()),
           "params not finite")
     check(metrics["bits"].item() == structural_bits(cfg, STEPS),
           f"bits {metrics['bits'].item()} != structural "
           f"{structural_bits(cfg, STEPS)}")
-    for n, c in launches.items():
-        check(c == expect, f"{n} launched {c} times, expected {leaves} leaves "
-                           f"x {W} workers x {STEPS} steps = {expect}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    log(f"main path: qwen3-0.6b full size, {cfg.n_layers} layers, "
-        f"{sum(p.numel() for p in state.params.values()):,} params, "
-        f"{leaves} leaves, w={W}, batch {BATCH}, seq {SEQ}")
-    log(f"main path: losses {losses}; bits {metrics['bits'].item():.0f} "
-        f"(structural); launches {launches} (= {expect} each)")
-    log(f"main path: step seconds {[round(s, 4) for s in step_s]}; peak "
-        f"memory allocated {peak / 2**30:.2f} GiB")
-    phase_breakdown(cfg, tcfg, state, batches[STEPS])
+    check(launches == expect, f"{comm_mode}: launches {launches}, expected "
+                              f"{expect}")
+    check(acc_launches == expect_acc,
+          f"{comm_mode}: accumulating q8_dequant_add_2d launched "
+          f"{acc_launches} times, expected {expect_acc}")
+    log(f"main path {comm_mode}: qwen3-0.6b full size, {cfg.n_layers} "
+        f"layers, {sum(p.numel() for p in state.params.values()):,} params, "
+        f"{leaves} leaves, w={W}, ring positions {n}, batch {BATCH}, seq "
+        f"{SEQ}")
+    log(f"main path {comm_mode}: losses {losses}; bits "
+        f"{metrics['bits'].item():.0f} (structural); launches {launches}, of "
+        f"which accumulating dequant {acc_launches} (as expected)")
+    log(f"main path {comm_mode}: step seconds {[round(t, 4) for t in step_s]}"
+        f"; peak memory allocated {peak / 2**30:.2f} GiB")
+    phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh)
+    return launches
 
 
-def phase_breakdown(cfg, tcfg, state, batch):
-    """Device time of each phase of one more step, run piece by piece."""
+def phase_breakdown(cfg, tcfg, state, batch, mesh):
+    """Device time of each phase of one more step, run piece by piece:
+    gradients, the round's messages, its aggregation, its apply, AdamW."""
     from repro_torch.comm.channel import make_channel
     from repro_torch.dist.worker_grads import per_worker_grads, split_batch
     from repro_torch.models import model as M
@@ -416,7 +599,7 @@ def phase_breakdown(cfg, tcfg, state, batch):
 
     cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
     q, rule = tcfg.compression.make()
-    channel = make_channel(tcfg.compression)
+    channel = make_channel(tcfg.compression, mesh)
     optimizer = make_optimizer(tcfg)
 
     def timed(fn):
@@ -426,17 +609,22 @@ def phase_breakdown(cfg, tcfg, state, batch):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    (grads, _, _), t_grads = timed(lambda: per_worker_grads(
+    t = {}
+    (grads, _, _), t["grads"] = timed(lambda: per_worker_grads(
         lambda p, b: M.train_loss(p, cfg, b), state.params,
         split_batch(batch, W)))
-    (g_bar, _, _, _), t_round = timed(lambda: rule.round(
-        q, state.noise, grads, state.h, state.h_bar, channel))
-    del grads
-    _, t_opt = timed(lambda: optimizer.update(g_bar, state.opt, state.params))
-    total = t_grads + t_round + t_opt
-    log(f"breakdown (s): grads {t_grads:.4f} ({t_grads / total:.1%}), "
-        f"round {t_round:.4f} ({t_round / total:.1%}), adamw {t_opt:.4f} "
-        f"({t_opt / total:.1%})")
+    (m, _), t["message"] = timed(lambda: rule.message(
+        q, state.noise, grads, state.h))
+    m_bar, t["aggregation"] = timed(lambda: channel.reduce_mean(
+        state.noise, m))
+    (g_bar, _, _), t["apply"] = timed(lambda: rule.apply(
+        grads, m, m_bar, state.h, state.h_bar, None))
+    del grads, m, m_bar
+    _, t["adamw"] = timed(lambda: optimizer.update(g_bar, state.opt,
+                                                   state.params))
+    total = sum(t.values())
+    log(f"breakdown {tcfg.compression.comm_mode} (s): " + ", ".join(
+        f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items()))
 
 
 def main():
@@ -445,9 +633,17 @@ def main():
 
     cfg = get_config("qwen3-0.6b").with_(dtype="float32")
     phase_build()
-    kernels = phase_kernels(cfg)
-    phase_cross_check()
-    phase_main_path(cfg, kernels)
+    kernels = phase_kernels(cfg) + [phase_ring_kernels(cfg)]
+    for mode in ("dense", "q8_ring_fused"):
+        phase_cross_check(mode)
+    by_path = {}
+    for mode in ("dense", "q8_ring_fused"):
+        by_path[mode] = phase_main_path(cfg, mode)
+        torch.cuda.empty_cache()
+    for k in kernels:
+        # this slice's main path (the ring) runs every kernel
+        k["launches"] = by_path["q8_ring_fused"][k["name"]]
+        k["launches_by_path"] = {m: c[k["name"]] for m, c in by_path.items()}
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,29 +1,34 @@
 """The Channel: one transport abstraction for compressed messages -- the
-port of the reference's ``repro/comm/channel.py`` for this slice.
+port of the reference's ``repro/comm/channel.py`` for the modes the
+port runs.
 
 ``SimChannel`` is the parameter server (exact worker mean);
-``MeshChannel`` in ``dense`` mode is the production aggregation of the
-stacked-worker step (also the exact mean, ``dist.collectives``).  The
-other aggregation formats and channels raise ``NotImplementedError``,
-naming the ROADMAP item that adds them.
+``MeshChannel`` is the production aggregation of the stacked-worker
+step over a ``launch.mesh.HostMesh``, in the ``dense`` (exact mean),
+``q8_ring`` (``Int8Stochastic`` ring) or ``q8_ring_fused`` (the ring on
+the q8 kernels) format (``dist.collectives``).  The other aggregation
+formats and channels raise ``NotImplementedError``, naming the ROADMAP
+item that adds them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.dist.collectives import dense_mean
+from repro_torch.dist.collectives import (
+    AGGREGATION_MODES,
+    compressed_tree_mean,
+    dense_mean,
+)
 
 Tree = Dict[str, torch.Tensor]
 
 #: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
 _NOT_PORTED = {
     "randk_shared": "ROADMAP queue 1, item 5 (collectives)",
-    "q8_ring": "ROADMAP queue 1, item 5 (collectives)",
-    "q8_ring_fused": "ROADMAP queue 1, item 5 (collectives)",
     "ef21": "ROADMAP queue 1, item 6 (training step and CLI)",
     "efbv": "ROADMAP queue 1, item 6 (training step and CLI)",
     "q8_ring_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
@@ -33,7 +38,8 @@ _NOT_PORTED = {
 }
 
 #: every comm mode the reference accepts: the ported ones first
-CHANNEL_MODES = ("dense", "sim") + tuple(_NOT_PORTED)
+CHANNEL_MODES = ("dense", "q8_ring", "q8_ring_fused", "sim") + tuple(
+    _NOT_PORTED)
 
 
 def _check_ported(mode: str):
@@ -76,30 +82,55 @@ class SimChannel(Channel):
 
 @dataclass(frozen=True, eq=False)
 class MeshChannel(Channel):
-    """Production channel; ``mode`` picks the aggregation wire format."""
+    """Production channel on a ``HostMesh``; ``mode`` picks the
+    aggregation wire format, ``q8_block_rows`` the fused q8 codec's
+    scale block (None = the kernel default)."""
 
     mode: str = "dense"
+    mesh: Any = None
+    q8_block_rows: Optional[int] = None
 
     def __post_init__(self):
         _check_ported(self.mode)
-        if self.mode != "dense":
-            raise ValueError(f"{self.mode!r} is not an aggregation mode")
+        if self.mode not in AGGREGATION_MODES:
+            raise ValueError(f"{self.mode!r} is not an aggregation mode; "
+                             f"have {AGGREGATION_MODES}")
 
     def reduce_mean(self, noise, wtree):
-        return dense_mean(wtree)
+        return compressed_tree_mean(wtree, self.mode, noise, self.mesh,
+                                    q8_block_rows=self.q8_block_rows)
 
 
-def make_channel(mode_or_cfg="dense") -> Channel:
-    """Build a Channel from a comm-mode string or a CompressionConfig.
-    A disabled config aggregates densely; unknown modes raise naming
-    every accepted mode, unported ones name their ROADMAP item."""
+def aggregation_mode_of(mode_or_cfg) -> str:
+    """Normalize a comm-mode string / CompressionConfig to an aggregation
+    format: disabled configs and the ``ef21``/``efbv`` modes aggregate
+    densely; the overlap and fused-VJP modes aggregate in the
+    ``q8_ring_fused`` format."""
+    if hasattr(mode_or_cfg, "aggregation_mode"):  # CompressionConfig
+        return mode_or_cfg.aggregation_mode
+    if mode_or_cfg in ("ef21", "efbv"):
+        return "dense"
+    if mode_or_cfg in ("q8_ring_overlap", "efbv_overlap",
+                       "q8_ring_fused_vjp"):
+        return "q8_ring_fused"
+    return mode_or_cfg
+
+
+def make_channel(mode_or_cfg="dense", mesh=None) -> Channel:
+    """Build a Channel from a comm-mode string or a CompressionConfig
+    (whose ``q8_block_rows`` sets the fused ring's scale block), over
+    ``mesh`` (a ``HostMesh``; the ring modes need one).  A disabled config
+    aggregates densely; unknown modes raise naming every accepted mode,
+    unported ones name their ROADMAP item."""
     comm_mode = getattr(mode_or_cfg, "comm_mode", mode_or_cfg)
     if not getattr(mode_or_cfg, "enabled", True):
         comm_mode = "dense"
     _check_ported(comm_mode)
     if comm_mode == "sim":
         return SimChannel()
-    return MeshChannel(mode=comm_mode)
+    return MeshChannel(mode=aggregation_mode_of(mode_or_cfg), mesh=mesh,
+                       q8_block_rows=getattr(mode_or_cfg, "q8_block_rows",
+                                             None))
 
 
 def resync_h_bar(h: Optional[Tree], h_bar: Optional[Tree], step: int,

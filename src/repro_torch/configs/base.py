@@ -86,10 +86,11 @@ class ModelConfig:
 @dataclass(frozen=True)
 class CompressionConfig:
     """How the DCGD-SHIFT layer is wired into the training step (same
-    fields as the reference).  This slice of the port runs the ``dense``
-    and ``sim`` channels, the ``fixed``/``dcgd``/``diana`` rules and the
-    ``identity``/``zero``/``q8_block`` codecs; the other values raise
-    ``NotImplementedError`` where they are resolved."""
+    fields as the reference).  The port runs the ``dense``, ``q8_ring``,
+    ``q8_ring_fused`` and ``sim`` channels, the ``fixed``/``dcgd``/
+    ``diana`` rules and the ``identity``/``zero``/``int8``/``q8_block``
+    codecs; the other values raise ``NotImplementedError`` where they are
+    resolved."""
     enabled: bool = True
     compressor: str = "natural"
     compressor_kwargs: tuple = ()  # tuple of (key, value) pairs (hashable)
@@ -118,6 +119,22 @@ class CompressionConfig:
         if self.comm_mode in ("efbv", "efbv_overlap"):
             return "efbv"
         return self.shift_rule
+
+    @property
+    def aggregation_mode(self) -> str:
+        """Wire format of the master-side aggregation: disabled configs
+        and EF21 aggregate densely (EF21's savings are in the per-worker
+        contractive messages)."""
+        if not self.enabled:
+            return "dense"
+        if self.comm_mode == "auto":
+            raise ValueError(
+                "comm_mode 'auto' has no aggregation format until the "
+                "tuner resolves it (repro.tune.autotune + apply_plan)"
+            )
+        from repro_torch.comm.channel import aggregation_mode_of
+
+        return aggregation_mode_of(self.comm_mode)
 
     def make(self):
         """Build the ``(compressor, rule)`` pair this config describes."""

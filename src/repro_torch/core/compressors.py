@@ -12,6 +12,11 @@ function:
         receiver derives from shared state (never charged).
   ``decode(payload, meta, like) -> x_hat``
         ``like`` is a ``ShapeDtype`` of the original tensor.
+  ``decode_add(payload, meta, acc, like)``
+        ``acc + decode(...)``: the receive side of a ring hop.  A codec
+        whose decode ends in a product overrides it with ONE rounding
+        (``fma_f32``), since XLA contracts the reference's
+        ``acc + q * scale`` into a fused multiply-add.
   ``__call__(rand, x)``
         the dense round trip, derived as ``decode(encode(rand, x))``.
   ``wire_bits(payload)``
@@ -19,8 +24,8 @@ function:
         payloads: ``numel * dtype bits`` summed over tensor leaves.
 
 Codecs still to be ported (RandK, BernoulliP, NaturalDithering,
-NaturalCompression, TernGrad, Int8Stochastic, TopK, ScaledSign,
-Induced) raise ``NotImplementedError`` from ``make_compressor``.
+NaturalCompression, TernGrad, TopK, ScaledSign, Induced) raise
+``NotImplementedError`` from ``make_compressor``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.kernels.q8ring.ref import fma_f32
 
 #: ROADMAP item that ports the remaining codecs
 _CODECS_ITEM = "ROADMAP queue 1, item 2 (codecs)"
@@ -91,6 +98,10 @@ class Compressor:
     def decode(self, payload, meta, like: ShapeDtype) -> torch.Tensor:
         raise NotImplementedError
 
+    def decode_add(self, payload, meta, acc: torch.Tensor,
+                   like: ShapeDtype) -> torch.Tensor:
+        return acc + self.decode(payload, meta, like)
+
     def __call__(self, rand, x: torch.Tensor) -> torch.Tensor:
         payload, meta = self.encode(rand, x)
         return self.decode(payload, meta, ShapeDtype.of(x))
@@ -145,6 +156,42 @@ class Zero(Compressor):
         return False
 
 
+@dataclass(frozen=True)
+class Int8Stochastic(Unbiased):
+    """Linear int8 quantization with a per-tensor max-scale and
+    stochastic rounding (unbiased).  The codec of the generic ``q8_ring``
+    all-reduce, which forwards exactly this payload (int8 block + f32
+    scale) hop by hop.  Plain PyTorch: the reference has no kernel for
+    it.  Its arithmetic is what XLA compiles the reference's to: the
+    scale is ``max(max|x|, 1e-30) * f32(1/levels)`` (division by a
+    constant becomes a product with its reciprocal), ``x / scale`` an
+    IEEE division, and the int8 convert saturates and maps NaN to 0.
+    """
+
+    levels: int = 127
+
+    def encode(self, rand, x):
+        xf = x.to(torch.float32)
+        inv = torch.tensor(1.0 / self.levels, dtype=torch.float32)
+        scale = torch.clamp_min(xf.abs().amax(), 1e-30) * inv
+        y = xf / scale
+        lo = torch.floor(y)
+        up = (rand(tuple(x.shape)) < (y - lo)).to(torch.float32)
+        q = (lo + up).nan_to_num_(nan=0.0).clamp_(-128.0, 127.0)
+        return {"q": q.to(torch.int8), "scale": scale}, {}
+
+    def decode(self, payload, meta, like):
+        out = payload["q"].to(torch.float32) * payload["scale"]
+        return out.reshape(like.shape).to(like.dtype)
+
+    def decode_add(self, payload, meta, acc, like):
+        return fma_f32(payload["q"].reshape(like.shape), payload["scale"], acc)
+
+    def omega(self, d):
+        # ||C(x)-x||^2 <= d*scale^2/4 <= d * ||x||^2/(4*levels^2)
+        return d / (4.0 * self.levels**2)
+
+
 def _fused_q8(**kw) -> Compressor:
     # the CUDA-fused blockwise-int8 codec lives with its kernel
     from repro_torch.kernels.q8ring.ops import FusedQ8
@@ -156,10 +203,11 @@ def _fused_q8(**kw) -> Compressor:
 _PORTED = {
     "identity": Identity,
     "zero": Zero,
+    "int8": Int8Stochastic,
     "q8_block": _fused_q8,
 }
 _NOT_PORTED = ("randk", "bernoulli", "natural_dithering", "natural",
-               "terngrad", "int8", "topk", "sign", "induced",
+               "terngrad", "topk", "sign", "induced",
                "induced_topk_randk", "induced_topk_natural")
 
 

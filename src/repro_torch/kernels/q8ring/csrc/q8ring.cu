@@ -1,14 +1,17 @@
 // Blockwise int8 codec kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels of the reference package:
-//   q8_quantize_kernel     <- src/repro/kernels/q8ring/kernel.py
-//                             q8_quantize_2d (body _q8_quantize_kernel)
-//   q8_dequant_add_kernel  <- src/repro/kernels/q8ring/kernel.py
-//                             q8_dequant_add_2d (body _q8_dequant_add_kernel)
+//   q8_quantize_kernel        <- src/repro/kernels/q8ring/kernel.py
+//                                q8_quantize_2d (body _q8_quantize_kernel)
+//   q8_quantize_chunk_kernel  <- src/repro/kernels/q8ring/kernel.py
+//                                q8_quantize_chunk_3d (body _q8_chunk_kernel)
+//   q8_dequant_add_kernel     <- src/repro/kernels/q8ring/kernel.py
+//                                q8_dequant_add_2d (body _q8_dequant_add_kernel)
 //
-// Both are memory-bound: a handful of operations per element against
+// All three are memory-bound: a handful of operations per element against
 //   quantize:     9 bytes per element (4 of x, 4 of u, 1 of q), plus one
-//                 f32 scale per tile;
+//                 f32 scale per tile -- the chunk variant reads x from one
+//                 chunk of an (n, rows, 128) ring buffer, so the same;
 //   dequant-add:  9 bytes per element (1 of q, 4 of acc, 4 of out), or 5
 //                 without an accumulator (plain decode).
 // So the design is about bytes: 16-byte loads of x/u/acc/out and 4-byte
@@ -18,6 +21,13 @@
 // quantize); the second read comes from L1/L2, since a tile is at most
 // 32 KiB at the default 64 rows.  Pipelining the loads (cp.async/TMA) is
 // later work.
+//
+// The ring-hop variant takes its chunk id from DEVICE memory (on the TPU
+// it arrives by scalar prefetch): every block loads it and offsets its
+// loads by id * rows * 128, so no f32 copy of the chunk is made and the
+// ring's precomputed id table costs no host-to-device copy per launch.
+// Both quantize kernels run one tile body (quantize_tile), so their scale
+// and rounding contract cannot drift apart.
 //
 // Bitwise contract with the plain PyTorch versions (ref.py):
 //   * scale = max(max|x|, 1e-30) * f32(1/127): the reference writes
@@ -72,15 +82,14 @@ __device__ __forceinline__ signed char quantize_one(float x, float u, float scal
   return static_cast<signed char>(static_cast<int>(q));
 }
 
-// One thread block per (block_rows, 128) tile; tile_vec = block_rows * 32
-// float4s.
-__global__ void __launch_bounds__(kThreads)
-q8_quantize_kernel(const float4* __restrict__ x, const float4* __restrict__ u,
-                   char4* __restrict__ q, float* __restrict__ scales,
-                   int tile_vec) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile_vec;
-  const float4* xt = x + base;
-
+// One (block_rows, 128) tile, run by the whole thread block: scale =
+// max(max|x|, floor) * (1/127), then the stochastic round of x / scale.
+// tile_vec = block_rows * 32 float4s.
+__device__ __forceinline__ void quantize_tile(const float4* __restrict__ xt,
+                                              const float4* __restrict__ ut,
+                                              char4* __restrict__ qt,
+                                              float* __restrict__ scale_out,
+                                              int tile_vec) {
   float m = 0.0f;
   for (int i = threadIdx.x; i < tile_vec; i += kThreads) {
     m = nanmax(m, abs_max4(xt[i]));
@@ -96,14 +105,12 @@ q8_quantize_kernel(const float4* __restrict__ x, const float4* __restrict__ u,
     if (threadIdx.x == 0) {
       const float scale = __fmul_rn(nanmax(v, kScaleFloor), kInvLevels);
       tile_scale = scale;
-      scales[blockIdx.x] = scale;
+      *scale_out = scale;
     }
   }
   __syncthreads();
   const float scale = tile_scale;
 
-  const float4* ut = u + base;
-  char4* qt = q + base;
   for (int i = threadIdx.x; i < tile_vec; i += kThreads) {
     const float4 xv = xt[i];
     const float4 uv = ut[i];
@@ -114,6 +121,38 @@ q8_quantize_kernel(const float4* __restrict__ x, const float4* __restrict__ u,
     o.w = quantize_one(xv.w, uv.w, scale);
     qt[i] = o;
   }
+}
+
+// One thread block per tile.
+__global__ void __launch_bounds__(kThreads)
+q8_quantize_kernel(const float4* __restrict__ x, const float4* __restrict__ u,
+                   char4* __restrict__ q, float* __restrict__ scales,
+                   int tile_vec) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile_vec;
+  quantize_tile(x + base, u + base, q + base, scales + blockIdx.x, tile_vec);
+}
+
+// One thread block per tile of chunk *chunk_id of the (n, rows, 128) ring
+// buffer; chunk_vec = rows * 32 float4s.  An id outside [0, n) reads
+// nothing: its tiles get q = 0 and a NaN scale, so a bad id shows in the
+// result instead of reading out of bounds (the plain version raises).
+__global__ void __launch_bounds__(kThreads)
+q8_quantize_chunk_kernel(const float4* __restrict__ chunks,
+                         const float4* __restrict__ u,
+                         const int* __restrict__ chunk_id,
+                         char4* __restrict__ q, float* __restrict__ scales,
+                         int n, int64_t chunk_vec, int tile_vec) {
+  const int id = *chunk_id;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile_vec;
+  if (id < 0 || id >= n) {
+    for (int i = threadIdx.x; i < tile_vec; i += kThreads) {
+      q[base + i] = make_char4(0, 0, 0, 0);
+    }
+    if (threadIdx.x == 0) scales[blockIdx.x] = __int_as_float(0x7fc00000);
+    return;
+  }
+  quantize_tile(chunks + id * chunk_vec + base, u + base, q + base,
+                scales + blockIdx.x, tile_vec);
 }
 
 // One group of 4 elements per thread; acc may be null (plain decode).
@@ -153,6 +192,21 @@ int q8_quantize_2d(const void* x, const void* u, void* q, void* scales,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x), static_cast<const float4*>(u),
       static_cast<char4*>(q), static_cast<float*>(scales),
+      block_rows * (kLane / 4));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// chunks: (n, rows, 128) f32; u: (rows, 128) f32; chunk_id: one int32 in
+// device memory; q: (rows, 128) int8; scales: (rows / block_rows) f32.
+int q8_quantize_chunk_3d(const void* chunks, const void* u,
+                         const void* chunk_id, void* q, void* scales, int n,
+                         long long rows, int block_rows, void* stream) {
+  const long long tiles = rows / block_rows;
+  q8_quantize_chunk_kernel<<<static_cast<unsigned int>(tiles), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(chunks), static_cast<const float4*>(u),
+      static_cast<const int*>(chunk_id), static_cast<char4*>(q),
+      static_cast<float*>(scales), n, static_cast<int64_t>(rows) * (kLane / 4),
       block_rows * (kLane / 4));
   return static_cast<int>(cudaGetLastError());
 }

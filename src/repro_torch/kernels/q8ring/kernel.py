@@ -1,16 +1,17 @@
 """Wrappers for the blockwise int8 codec kernels (CUDA C++ for Hopper).
 
-``q8_quantize_2d`` and ``q8_dequant_add_2d`` replace the reference's
-Pallas TPU kernels of the same names (``repro/kernels/q8ring/kernel.py``).
-Their CUDA source is ``csrc/q8ring.cu``; their plain PyTorch versions
-are in ``ref.py``.
+``q8_quantize_2d``, ``q8_quantize_chunk_3d`` and ``q8_dequant_add_2d``
+replace the reference's Pallas TPU kernels of the same names
+(``repro/kernels/q8ring/kernel.py``).  Their CUDA source is
+``csrc/q8ring.cu``; their plain PyTorch versions are in ``ref.py``.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel on the current
 stream or raises -- there is no fallback.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches`` (a plain int, incremented only
 where the kernel is launched), so a run can show that its main path went
-through the kernel.
+through the kernel; ``q8_dequant_add_2d.acc_launches`` counts those of
+its launches that read an accumulator (the ring's receive side).
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ from repro_torch.kernels.q8ring.ref import (
     LEVELS,
     SCALE_FLOOR,
     q8_dequant_add_ref,
+    q8_quantize_chunk_ref,
     q8_quantize_ref,
 )
 
 __all__ = ["DEFAULT_BLOCK_ROWS", "LANE", "LEVELS", "SCALE_FLOOR",
-           "q8_dequant_add_2d", "q8_quantize_2d"]
+           "q8_dequant_add_2d", "q8_quantize_2d", "q8_quantize_chunk_3d"]
 
 _VP = ctypes.c_void_p
 
@@ -42,6 +44,10 @@ def _lib() -> ctypes.CDLL:
         lib.q8_quantize_2d.argtypes = [_VP, _VP, _VP, _VP, ctypes.c_longlong,
                                        ctypes.c_int, _VP]
         lib.q8_quantize_2d.restype = ctypes.c_int
+        lib.q8_quantize_chunk_3d.argtypes = [_VP, _VP, _VP, _VP, _VP,
+                                             ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_int, _VP]
+        lib.q8_quantize_chunk_3d.restype = ctypes.c_int
         lib.q8_dequant_add_2d.argtypes = [_VP, _VP, _VP, _VP,
                                           ctypes.c_longlong, ctypes.c_int,
                                           _VP]
@@ -112,6 +118,40 @@ def q8_quantize_2d(x: torch.Tensor, u: torch.Tensor, *,
     return q, scales
 
 
+def q8_quantize_chunk_3d(chunks: torch.Tensor, u: torch.Tensor,
+                         chunk_id: torch.Tensor, *,
+                         block_rows: int = DEFAULT_BLOCK_ROWS):
+    """The ring hop's send side: ``q8_quantize_2d(chunks[chunk_id], u)``
+    read in place from the (n, R, 128) f32 ring buffer, no chunk copy.
+    ``chunk_id`` is a one-element int32 tensor on ``chunks``' device,
+    which the kernel reads from device memory.  An id outside [0, n)
+    raises ``IndexError`` on the CPU; on the card it does NOT raise (the
+    id is never brought to the host): the kernel reads nothing and
+    returns q = 0 and NaN scales.  Returns (q: (R, 128) int8, scales:
+    (R // block_rows, 1) f32)."""
+    n, r, lane = chunks.shape
+    nb = _tiles(r, lane, block_rows)
+    _check("chunks", chunks, torch.float32, (n, r, LANE), chunks.device, 16)
+    _check("u", u, torch.float32, (r, LANE), chunks.device, 16)
+    _check("chunk_id", chunk_id.reshape(-1), torch.int32, (1,),
+           chunks.device, 4)
+    if _device_kind(chunks) == "cpu":
+        return q8_quantize_chunk_ref(chunks, u, chunk_id.item(),
+                                     block=block_rows)
+    q = torch.empty((r, LANE), dtype=torch.int8, device=chunks.device)
+    scales = torch.empty((nb, 1), dtype=torch.float32, device=chunks.device)
+    lib = _lib()
+    with torch.cuda.device(chunks.device):
+        err = lib.q8_quantize_chunk_3d(
+            chunks.data_ptr(), u.data_ptr(), chunk_id.data_ptr(),
+            q.data_ptr(), scales.data_ptr(), n, r, block_rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, "q8_quantize_chunk_3d")
+    q8_quantize_chunk_3d.launches += 1
+    return q, scales
+
+
 def q8_dequant_add_2d(q: torch.Tensor, scales: torch.Tensor,
                       acc: Optional[torch.Tensor], *,
                       block_rows: int = DEFAULT_BLOCK_ROWS):
@@ -136,8 +176,11 @@ def q8_dequant_add_2d(q: torch.Tensor, scales: torch.Tensor,
         )
     _raise_on(lib, err, "q8_dequant_add_2d")
     q8_dequant_add_2d.launches += 1
+    q8_dequant_add_2d.acc_launches += acc is not None
     return out
 
 
 q8_quantize_2d.launches = 0
+q8_quantize_chunk_3d.launches = 0
 q8_dequant_add_2d.launches = 0
+q8_dequant_add_2d.acc_launches = 0

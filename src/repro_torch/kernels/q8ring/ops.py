@@ -7,6 +7,7 @@ the ``q8_quantize_2d`` kernel and decoded by ``q8_dequant_add_2d``.  The
 tile grid is part of the wire format -- ``_tile_rows`` is the one rule
 for it, as in the reference -- so a leaf must be encoded whole (stacked
 layers included) for its scales, payload and ``wire_bits`` to match.
+The ring chunks (``ring_chunk_layout``) follow the same rule.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.kernels.q8ring.kernel import (
 )
 
 __all__ = ["DEFAULT_BLOCK_ROWS", "LANE", "LEVELS", "SCALE_FLOOR", "FusedQ8",
-           "q8_dequant", "q8_layout", "to_lanes"]
+           "q8_dequant", "q8_layout", "ring_chunk_layout", "to_lanes"]
 
 
 def _tile_rows(rows: int, block_rows: int):
@@ -43,6 +44,14 @@ def q8_layout(d: int, block_rows: int = DEFAULT_BLOCK_ROWS):
     rows = max(1, -(-d // LANE))
     rows_pad, block = _tile_rows(rows, block_rows)
     return rows, block, rows_pad
+
+
+def ring_chunk_layout(d: int, n: int, block_rows: int = DEFAULT_BLOCK_ROWS):
+    """(rows_c, block) for an n-chunk ring over a d-element vector: the
+    lane rows split n ways, each chunk padded to the same tile grid as
+    ``q8_layout`` (one rule -- see ``_tile_rows``)."""
+    rows = max(1, -(-d // LANE))
+    return _tile_rows(-(-rows // n), block_rows)
 
 
 def to_lanes(x: torch.Tensor, rows_pad: int) -> torch.Tensor:
@@ -72,6 +81,9 @@ class FusedQ8(Unbiased):
     """
 
     block_rows: int = DEFAULT_BLOCK_ROWS
+
+    #: ``q8_ring_tree_mean`` takes the chunk-fused ring on this flag
+    fused_ring = True
 
     def encode(self, rand, x):
         rows, block, rows_pad = q8_layout(x.numel(), self.block_rows)

@@ -34,6 +34,25 @@ SCALE_FLOOR = 1e-30       # well above subnormal: tiny/LEVELS must not flush
 INV_LEVELS = 1.0 / LEVELS  # as f32: 0.00787401572, XLA's folded reciprocal
 
 
+def fma_f32(q: torch.Tensor, scale: torch.Tensor,
+            acc: torch.Tensor) -> torch.Tensor:
+    """``q * scale + acc`` rounded ONCE to f32 -- a correctly rounded
+    fma -- for int8-valued ``q`` and f32 ``scale`` (broadcast against
+    ``q``) and ``acc``.  ``q * scale`` is exact in f64 (8 x 24
+    significant bits).  TwoSum gives the exact rounding error e of
+    ``t = acc + q * scale``; nudging t one f64 ulp toward e keeps it on
+    the exact sum's side of every f32 tie, so the final f64 -> f32
+    conversion is the single rounding of the exact value."""
+    p = q.to(torch.float64) * scale.to(torch.float64)
+    a = acc.to(torch.float64)
+    t = a + p
+    bp = t - a
+    e = (a - (t - bp)) + (p - bp)
+    toward = torch.where(e > 0, float("inf"), float("-inf")).to(torch.float64)
+    t = torch.where(e != 0, torch.nextafter(t, toward), t)
+    return t.to(torch.float32)
+
+
 def _check_tiles(r: int, lane: int, block: int):
     if lane != LANE or block < 1 or r % block:
         raise ValueError(
@@ -56,6 +75,18 @@ def q8_quantize_ref(x: torch.Tensor, u: torch.Tensor, *, block: int):
     return q.to(torch.int8).reshape(r, lane), scales[:, None]
 
 
+def q8_quantize_chunk_ref(chunks: torch.Tensor, u: torch.Tensor,
+                          chunk_id: int, *, block: int):
+    """The quantize of chunk ``chunk_id`` of an (n, R, 128) ring buffer:
+    ``q8_quantize_ref(chunks[chunk_id], u)``, the id checked to lie in
+    [0, n)."""
+    n = chunks.shape[0]
+    chunk_id = int(chunk_id)
+    if not 0 <= chunk_id < n:
+        raise IndexError(f"chunk_id {chunk_id} outside [0, {n})")
+    return q8_quantize_ref(chunks[chunk_id], u, block=block)
+
+
 def q8_dequant_add_ref(q: torch.Tensor, scales: torch.Tensor,
                        acc: Optional[torch.Tensor], *, block: int):
     """``fma(q, scale, acc)`` with one scale per (block, 128) row block,
@@ -67,16 +98,5 @@ def q8_dequant_add_ref(q: torch.Tensor, scales: torch.Tensor,
     qb = q.reshape(nb, block * lane)
     if acc is None:
         return (qb.to(torch.float32) * scales.reshape(nb, 1)).reshape(r, lane)
-    # q * scale is exact in f64 (8 x 24 significant bits).  TwoSum gives
-    # the exact rounding error e of t = acc + p; nudging t one f64 ulp
-    # toward e keeps it on the exact sum's side of every f32 tie, so the
-    # final f64 -> f32 conversion is the single rounding of the exact
-    # value -- i.e. a correctly rounded f32 fma.
-    p = qb.to(torch.float64) * scales.reshape(nb, 1).to(torch.float64)
-    a = acc.reshape(nb, block * lane).to(torch.float64)
-    t = a + p
-    bp = t - a
-    e = (a - (t - bp)) + (p - bp)
-    toward = torch.where(e > 0, float("inf"), float("-inf")).to(torch.float64)
-    t = torch.where(e != 0, torch.nextafter(t, toward), t)
-    return t.to(torch.float32).reshape(r, lane)
+    return fma_f32(qb, scales.reshape(nb, 1), acc.reshape(nb, block * lane)
+                   ).reshape(r, lane)

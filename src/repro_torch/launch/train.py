@@ -5,7 +5,9 @@ the production step, the port of the reference's
 One step: per-worker gradients (``dist.worker_grads``, W workers stacked
 on one device), one shift-rule round through the channel
 (``rule.round``: message -> aggregate -> apply; the codec's encode and
-decode run the CUDA kernels on a GPU), then AdamW.  There is no
+decode run the CUDA kernels on a GPU, and so do the hops of the
+``q8_ring_fused`` aggregation over the mesh's ``data`` axis), then
+AdamW.  There is no
 per-rule math here.  The reference splits a PRNG key per step; the port
 draws the round's uniforms from the state's noise source
 (``comm.wire``) in the reference's order.
@@ -15,8 +17,12 @@ that do it.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
-          [--compressor q8_block] [--shift-rule diana] [--comm-mode dense] \
+          [--compressor q8_block] [--shift-rule diana] \
+          [--comm-mode dense|q8_ring|q8_ring_fused] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
+
+The worker count is the size of the host mesh's ``data`` axis, as in the
+reference: the CUDA device count, or 1 on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from repro_torch.core.shift_rules import SHIFT_RULES
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.dist.worker_grads import per_worker_grads, split_batch
+from repro_torch.launch.mesh import HostMesh, make_host_mesh, n_workers
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import make_optimizer
 
@@ -73,15 +80,18 @@ def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
                       f32_bits())
 
 
-def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int):
+def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
+                     mesh: Optional[HostMesh] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     is ``{"tokens": (B, S)}`` on the state's device, B divisible by ``w``.
+    The ring aggregation modes run over ``mesh`` (``None``: one position,
+    where the ring is the exact sum).
     """
     if tcfg.train_attn_chunk > 0:
         cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
     comp = tcfg.compression
     optimizer = make_optimizer(tcfg)
-    channel = make_channel(comp)
+    channel = make_channel(comp, HostMesh() if mesh is None else mesh)
     q, rule = comp.make() if comp.enabled else (None, None)
 
     def loss_fn(params, batch):
@@ -107,12 +117,6 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int):
         return new_state, {**metrics, "loss": loss, "bits": bits}
 
     return train_step
-
-
-def n_workers(device: torch.device) -> int:
-    """Workers = devices, as the reference's host mesh: the CUDA device
-    count, or 1 on the CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def main(argv: Optional[list] = None):
@@ -145,7 +149,8 @@ def main(argv: Optional[list] = None):
         shift_rule=args.shift_rule,
         comm_mode=args.comm_mode,
     )
-    w = n_workers(device)
+    mesh = make_host_mesh(device)
+    w = n_workers(mesh)
     if args.batch % w:
         raise SystemExit(f"--batch must be divisible by {w} workers")
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
@@ -153,7 +158,7 @@ def main(argv: Optional[list] = None):
                        compression=comp)
 
     state = init_state(0, cfg, tcfg, w, device)
-    step_fn = build_train_step(cfg, tcfg, w)
+    step_fn = build_train_step(cfg, tcfg, w, mesh)
     stream = TokenStream(cfg, args.seq, args.batch)
     print(f"arch={args.arch} params={M.count_params_analytic(cfg):,} "
           f"workers={w} device={device} compression={comp.enabled} "
