@@ -11,13 +11,19 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    power limit.
 2. Build every kernel of the path with ``nvcc`` (sm_90a) and print the
    seconds it took.
-3. Hold each kernel bitwise against its plain PyTorch version on the
-   card, at every layout the main paths give it (the codec's leaf
-   layouts; the ring's chunk layouts for 4 positions, every chunk id),
-   and time both with CUDA events (median of 20) at the largest (the
-   embedding's).
-4. Cross-check, in the ``dense`` and the ``q8_ring_fused`` mode: one
-   step of the smoke config on the card (kernels) and on the CPU (plain
+3. Hold each q8 kernel bitwise against its plain PyTorch version on
+   the card, at every layout the main paths give it (the codec's leaf
+   layouts of qwen3-0.6b and of rwkv6-3b; the ring's chunk layouts for
+   4 positions, every chunk id), and time both with CUDA events (median
+   of 20) at the largest qwen3-0.6b layout (the embedding's).  Hold the
+   WKV6 forward and backward kernels against their plain versions
+   within WKV_TOL (not bitwise: the sums run in another order) at the
+   RWKV-6 path's shape, at a long T that no chunk divides, at the other
+   head widths, and forward with bf16 inputs; time them at the path's
+   shape.
+4. Cross-check, for qwen3-0.6b in the ``dense`` and the
+   ``q8_ring_fused`` mode and for rwkv6-3b in ``dense``: one step of
+   the smoke config on the card (kernels) and on the CPU (plain
    versions) from one state and one stream of uniforms; bits exactly,
    the loss to f32 precision, the shifts within a stated number of
    lattice steps and the params within 2 lr, each with a bound on the
@@ -33,6 +39,9 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    ``HostMesh(data=4)`` -- 4 ring positions on the one card -- with the
    same checks; the ring's launches are counted too (the chunk
    quantize, the accumulating dequant, the all-gather decode).
+7. The RWKV-6 main path: the same 3 dense steps of rwkv6-3b at full
+   width and RWKV_LAYERS of its 32 layers, with the same checks; each
+   layer launches one WKV6 forward and one backward per worker and step.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -54,6 +63,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 W, BATCH, SEQ, STEPS, LR = 4, 8, 128, 3, 3e-4
 RING = 4                    # positions of the emulated data axis
+RWKV_LAYERS = 6             # rwkv6-3b's 32 layers cut to fit one 80 GB card
+SLEEP_CYCLES = 1_000_000    # ~0.5 ms at the H100's clocks (time_ms)
+WKV_TOL = 1e-4              # rtol and atol of the WKV6 kernels vs plain
+                            # (du: atol relative to its largest entry)
+WKV_LONG_T = 1003           # divided by neither the 8-step checkpoint chunk
+                            # nor the forward's 16-step stage
 
 
 def log(msg):
@@ -72,19 +87,23 @@ def check(cond, msg):
 
 def time_ms(fn, iters=20):
     """Median device time of ``fn`` over ``iters`` calls (CUDA events),
-    after one warm-up call."""
+    after one warm-up call.  Each call's start event waits behind a
+    sleeping kernel (~0.5 ms) while the host enqueues the call, so a call
+    whose host side (checks, allocation, launch) is shorter than that is
+    timed on the device alone."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    events = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -165,14 +184,18 @@ def ring_layouts(cfg):
                    for _, shape, _ in param_specs(cfg)}, reverse=True)
 
 
-def phase_kernels(cfg):
+def phase_kernels(cfg, also=()):
+    """The codec kernels bitwise against their plain versions at every
+    leaf layout of ``cfg`` and of the configs in ``also``; timed at
+    ``cfg``'s largest."""
     from repro_torch.kernels.q8ring import kernel as K
     from repro_torch.kernels.q8ring.ref import (q8_dequant_add_ref,
                                                 q8_quantize_ref)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    layouts = main_path_layouts(cfg)
+    layouts = sorted({lay for c in (cfg, *also)
+                      for lay in main_path_layouts(c)}, reverse=True)
     errs = {"q8_quantize_2d": 0.0, "q8_dequant_add_2d": 0.0}
     for rows, block in layouts:
         x = torch.randn((rows, 128), generator=gen, device=dev) * 0.02
@@ -202,8 +225,8 @@ def phase_kernels(cfg):
         log(f"kernels: bitwise equal to plain at ({rows}, 128) block {block}")
         del x, u, q, s, qr, sr, acc, out, ref
 
-    # timing at the largest layout (the tied embedding)
-    rows, block = layouts[0]
+    # timing at cfg's largest layout (qwen3-0.6b's tied embedding)
+    rows, block = main_path_layouts(cfg)[0]
     n = rows * 128
     nb = rows // block
     x = torch.randn((rows, 128), generator=gen, device=dev) * 0.02
@@ -352,6 +375,137 @@ def phase_ring_kernels(cfg):
             "library_ms": None}
 
 
+def wkv6_inputs(gen, bh, t, dk, dv):
+    """f32 unit-normal r, k, v, u and decays exp(-exp(N(0, 1))), as the
+    reference's kernel test draws them."""
+    dev = torch.device("cuda")
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = normal(bh, t, dk), normal(bh, t, dk), normal(bh, t, dv)
+    return r, k, v, torch.exp(-torch.exp(normal(bh, t, dk))), normal(bh, dk)
+
+
+def _wkv_compare(what, got, ref, *, summed_over_t=False):
+    """|got - ref| <= WKV_TOL (1 + |ref|) elementwise; for an output that
+    sums T f32 terms (``du``, whose rounding grows with T and whose small
+    elements sit far below the magnitude summed) WKV_TOL (|ref| + max
+    |ref|) instead.  Returns (max |diff|, max |diff| / allowed)."""
+    d = (got - ref).abs()
+    atol = ref.abs().max() if summed_over_t else 1.0
+    allowed = WKV_TOL * (ref.abs() + atol)
+    worst = (d / allowed).max().item()
+    form = "|plain| + max |plain|" if summed_over_t else "1 + |plain|"
+    check(worst <= 1.0, f"{what}: |kernel - plain| beyond {WKV_TOL} ({form})"
+                        f": worst ratio {worst:.3f}, max |diff| "
+                        f"{d.max().item():.3e}")
+    return d.max().item(), worst
+
+
+def phase_wkv6_kernels(cfg):
+    """The WKV6 forward and backward kernels against their plain versions
+    on the card: at the main path's shape (one worker's batch times the
+    heads, SEQ steps, f32), at a long T that no chunk divides (with a
+    final-state gradient), at the other built head widths (K != V), and
+    forward with bf16 inputs; then both timed at the path's shape."""
+    from repro_torch.kernels.wkv6 import kernel as WK
+    from repro_torch.kernels.wkv6.ref import (wkv6_bwd_ref, wkv6_fwd_ref,
+                                              wkv6_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    hd = cfg.rwkv_head_dim
+    bh = BATCH // W * (cfg.d_model // hd)
+    cases = [(bh, SEQ, hd, hd, False), (bh, WKV_LONG_T, hd, hd, True),
+             (6, 77, 32, 64, True), (3, 50, 16, 16, False)]
+    err = {"wkv6_forward": 0.0, "wkv6_backward": 0.0}
+    worst = dict(err)
+    for n_bh, t, dk, dv, with_ds in cases:
+        r, k, v, w, u = wkv6_inputs(gen, n_bh, t, dk, dv)
+        y, s, ckpt = WK.wkv6_forward(r, k, v, w, u, checkpoints=True)
+        yr, sr, cr = wkv6_fwd_ref(r, k, v, w, u, checkpoints=True)
+        dy = torch.randn((n_bh, t, dv), generator=gen, device="cuda")
+        ds = (torch.randn((n_bh, dk, dv), generator=gen, device="cuda")
+              if with_ds else None)
+        grads = WK.wkv6_backward(r, k, v, w, u, ckpt, dy, ds)
+        grads_ref = wkv6_bwd_ref(r, k, v, w, u, dy, ds)
+        torch.cuda.synchronize()
+        shape = f"(BH={n_bh}, T={t}, K={dk}, V={dv})"
+        for name, kind, got, ref in [
+                ("y", "wkv6_forward", y, yr),
+                ("s_final", "wkv6_forward", s, sr),
+                ("ckpt", "wkv6_forward", ckpt, cr),
+                *((f"d{x}", "wkv6_backward", g, gr)
+                  for x, g, gr in zip("rkvwu", grads, grads_ref))]:
+            e, q = _wkv_compare(f"{kind} {name} at {shape}", got, ref,
+                                summed_over_t=name == "du")
+            err[kind] = max(err[kind], e)
+            worst[kind] = max(worst[kind], q)
+        rb, kb, vb, wb = (x.to(torch.bfloat16) for x in (r, k, v, w))
+        yb, sb, _ = WK.wkv6_forward(rb, kb, vb, wb, u)
+        ybr, sbr = wkv6_ref(rb, kb, vb, wb, u)
+        torch.cuda.synchronize()
+        for name, got, ref in (("y", yb, ybr), ("s_final", sb, sbr)):
+            e, q = _wkv_compare(f"wkv6_forward bf16 {name} at {shape}", got,
+                                ref)
+            err["wkv6_forward"] = max(err["wkv6_forward"], e)
+            worst["wkv6_forward"] = max(worst["wkv6_forward"], q)
+        log(f"wkv6 kernels: within {WKV_TOL} (1 + |plain|; du: |plain| + "
+            f"max |plain|) of plain at {shape}, f32 forward + backward"
+            f"{' with a final-state gradient' if with_ds else ''}, bf16 "
+            f"forward")
+    log(f"wkv6 kernels: largest |kernel - plain| forward "
+        f"{err['wkv6_forward']:.3e} ({worst['wkv6_forward']:.3f} of the "
+        f"tolerance), backward {err['wkv6_backward']:.3e} "
+        f"({worst['wkv6_backward']:.3f} of it)")
+
+    # timing at the path's shape: the forward as training runs it (saving
+    # its checkpoints), the backward from them
+    r, k, v, w, u = wkv6_inputs(gen, bh, SEQ, hd, hd)
+    dy = torch.randn((bh, SEQ, hd), generator=gen, device="cuda")
+    _, _, ckpt = WK.wkv6_forward(r, k, v, w, u, checkpoints=True)
+    t = {
+        "fwd": time_ms(lambda: WK.wkv6_forward(r, k, v, w, u,
+                                               checkpoints=True)),
+        "fwd_plain": time_ms(lambda: wkv6_ref(r, k, v, w, u)),
+        "bwd": time_ms(lambda: WK.wkv6_backward(r, k, v, w, u, ckpt, dy)),
+        "bwd_plain": time_ms(lambda: wkv6_bwd_ref(r, k, v, w, u, dy)),
+    }
+    # bytes: r, k, v, w, u read once and y, s_final written once (forward);
+    # r, k, v, w, u, dy read once and dr, dk, dv, dw, du written once
+    # (backward).  Operations (an fma is 2): forward, per state element
+    # and step, k v 1, r (.) S 2, w S + kv 2: 5, and per step the bonus
+    # as one scalar, (sum_i r_i u_i k_i) v_j: 3 K + 2 V; backward, per
+    # state element and step, the state recompute 3, the three sums over
+    # j 6, the dv partial 1, dS 3, the sum over i 1: 14.
+    seq = bh * SEQ * hd * 4
+    n_state = bh * SEQ * hd * hd
+    fb, fby = bound_ms(5 * seq + bh * hd * 4 + bh * hd * hd * 4,
+                       5 * n_state + bh * SEQ * (3 * hd + 2 * hd))
+    bb, bby = bound_ms(9 * seq + 2 * bh * hd * 4, 14 * n_state)
+    log(f"wkv6 timing at (BH={bh}, T={SEQ}, K=V={hd}) f32, median of 20 "
+        f"(ms): forward {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
+        f"{fb:.4f} by {fby}); backward {t['bwd']:.4f} (plain "
+        f"{t['bwd_plain']:.4f}, bound {bb:.4f} by {bby}); no single "
+        f"PyTorch call computes either")
+    del r, k, v, w, u, dy, ckpt
+    torch.cuda.empty_cache()
+    src = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
+    return [
+        {"name": "wkv6_forward", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/wkv6/kernel.py:68",
+         "max_abs_err": err["wkv6_forward"], "ms": t["fwd"],
+         "plain_ms": t["fwd_plain"], "bound_ms": fb, "bound_by": fby,
+         "library_ms": None},
+        {"name": "wkv6_backward", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/wkv6/kernel.py:68 (its gradient; "
+                     "the TPU kernel has no backward)",
+         "max_abs_err": err["wkv6_backward"], "ms": t["bwd"],
+         "plain_ms": t["bwd_plain"], "bound_ms": bb, "bound_by": bby,
+         "library_ms": None},
+    ]
+
+
 def _slice_configs(cfg, comm_mode="dense"):
     from repro_torch.configs.base import CompressionConfig, TrainConfig
 
@@ -391,7 +545,7 @@ def ring_tile_max(step, n, block_rows=64):
             .reshape(step.shape))
 
 
-def phase_cross_check(comm_mode):
+def phase_cross_check(arch, comm_mode):
     """One smoke-config step on the card and on the CPU, same state and
     uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
 
@@ -425,7 +579,7 @@ def phase_cross_check(comm_mode):
 
     TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
     ring = comm_mode != "dense"
-    cfg = get_smoke_config("qwen3-0.6b").with_(dtype="float32")
+    cfg = get_smoke_config(arch).with_(dtype="float32")
     tcfg = _slice_configs(cfg, comm_mode)
     alpha = tcfg.compression.shift_alpha
     block_rows = tcfg.compression.q8_block_rows
@@ -449,10 +603,10 @@ def phase_cross_check(comm_mode):
         results[dev] = (state, m)
     (sc, mc), (sg, mg) = results["cpu"], results["cuda"]
     check(mg["bits"].item() == mc["bits"].item(),
-          f"cross-check {comm_mode}: bits differ")
+          f"cross-check {arch} {comm_mode}: bits differ")
     lc, lg = mc["loss"].item(), mg["loss"].item()
     check(abs(lg - lc) <= 1e-5 * abs(lc),
-          f"cross-check {comm_mode}: loss {lg} vs {lc}")
+          f"cross-check {arch} {comm_mode}: loss {lg} vs {lc}")
 
     counts, worst_share = {}, {}
     for name in ("h", "h_bar"):
@@ -469,16 +623,16 @@ def phase_cross_check(comm_mode):
             noise = TIGHT * ref.abs().max().item()
             bound = alpha * lat * 1.001 + noise
             check(bool((d <= bound).all()),
-                  f"cross-check {comm_mode}: {name}[{k}] beyond its lattice "
-                  f"bound")
+                  f"cross-check {arch} {comm_mode}: {name}[{k}] beyond its "
+                  f"lattice bound")
             worst_share[name] = max(worst_share[name], torch.where(
                 bound > 0, d / bound, 0.0).max().item())
             flipped += int((d > noise).sum())
             total += d.numel()
         share = RARE_RING if ring and name == "h_bar" else RARE
         check(flipped <= share * total,
-              f"cross-check {comm_mode}: {flipped} of {total} {name} "
-              f"elements flipped")
+              f"cross-check {arch} {comm_mode}: {flipped} of {total} "
+              f"{name} elements flipped")
         counts[name] = (flipped, total)
     off = total = 0
     worst = 0.0
@@ -487,13 +641,13 @@ def phase_cross_check(comm_mode):
         worst = max(worst, d.max().item())
         off += int((d > TIGHT * ref.abs().max().item()).sum())
         total += d.numel()
-    check(worst <= 2 * LR, f"cross-check {comm_mode}: params differ by "
-                           f"{worst}")
+    check(worst <= 2 * LR, f"cross-check {arch} {comm_mode}: params differ "
+                           f"by {worst}")
     check(off <= 1e-3 * total,
-          f"cross-check {comm_mode}: {off} of {total} params beyond f32 "
-          f"noise")
-    log(f"cross-check {comm_mode} (smoke config, 1 step, GPU vs CPU): loss "
-        f"{lg:.6f} vs {lc:.6f}, bits {mg['bits'].item():.0f} equal; "
+          f"cross-check {arch} {comm_mode}: {off} of {total} params beyond "
+          f"f32 noise")
+    log(f"cross-check {arch} {comm_mode} (smoke config, 1 step, GPU vs CPU): "
+        f"loss {lg:.6f} vs {lc:.6f}, bits {mg['bits'].item():.0f} equal; "
         f"elements off: h {counts['h'][0]} of {counts['h'][1]}, h_bar "
         f"{counts['h_bar'][0]} of {counts['h_bar'][1]}; largest |diff| / "
         f"bound: h {worst_share['h']:.3f}, h_bar {worst_share['h_bar']:.3f}"
@@ -518,11 +672,12 @@ def structural_bits(cfg, steps):
 
 
 def phase_main_path(cfg, comm_mode):
-    """3 full-size steps in ``comm_mode`` (``dense``, or ``q8_ring_fused``
+    """3 steps of ``cfg`` in ``comm_mode`` (``dense``, or ``q8_ring_fused``
     over a ``HostMesh(data=RING)`` on the card); returns the kernels'
     launch counts of those steps."""
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.wkv6 import kernel as WK
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
@@ -539,7 +694,9 @@ def phase_main_path(cfg, comm_mode):
 
     wrappers = {"q8_quantize_2d": K.q8_quantize_2d,
                 "q8_quantize_chunk_3d": K.q8_quantize_chunk_3d,
-                "q8_dequant_add_2d": K.q8_dequant_add_2d}
+                "q8_dequant_add_2d": K.q8_dequant_add_2d,
+                "wkv6_forward": WK.wkv6_forward,
+                "wkv6_backward": WK.wkv6_backward}
     for fn in wrappers.values():
         fn.launches = 0
     K.q8_dequant_add_2d.acc_launches = 0
@@ -557,13 +714,16 @@ def phase_main_path(cfg, comm_mode):
     # leaves x workers x steps for the message encode and decode; per leaf
     # and step the ring adds n chunk quantizes at each of its n positions,
     # n - 1 accumulating dequants at each, and one all-gather decode per
-    # owner
+    # owner; an RWKV-6 layer runs one WKV6 forward and one backward per
+    # worker and step (no recompute)
     leaves = len(state.params)
     msgs = leaves * W * STEPS
+    wkv = cfg.n_layers * W * STEPS if cfg.arch_type == "ssm" else 0
     expect = {"q8_quantize_2d": msgs,
               "q8_quantize_chunk_3d": leaves * n * n * STEPS if ring else 0,
               "q8_dequant_add_2d": msgs + (leaves * n * n * STEPS if ring
-                                           else 0)}
+                                           else 0),
+              "wkv6_forward": wkv, "wkv6_backward": wkv}
     expect_acc = leaves * n * (n - 1) * STEPS if ring else 0
     check(all(math.isfinite(v) for v in losses), f"loss not finite: {losses}")
     check(all(torch.isfinite(p).all().item() for p in state.params.values()),
@@ -571,20 +731,21 @@ def phase_main_path(cfg, comm_mode):
     check(metrics["bits"].item() == structural_bits(cfg, STEPS),
           f"bits {metrics['bits'].item()} != structural "
           f"{structural_bits(cfg, STEPS)}")
-    check(launches == expect, f"{comm_mode}: launches {launches}, expected "
+    what = f"main path {cfg.name} {comm_mode}"
+    check(launches == expect, f"{what}: launches {launches}, expected "
                               f"{expect}")
     check(acc_launches == expect_acc,
-          f"{comm_mode}: accumulating q8_dequant_add_2d launched "
+          f"{what}: accumulating q8_dequant_add_2d launched "
           f"{acc_launches} times, expected {expect_acc}")
-    log(f"main path {comm_mode}: qwen3-0.6b full size, {cfg.n_layers} "
-        f"layers, {sum(p.numel() for p in state.params.values()):,} params, "
+    log(f"{what}: {cfg.n_layers} layers, "
+        f"{sum(p.numel() for p in state.params.values()):,} params, "
         f"{leaves} leaves, w={W}, ring positions {n}, batch {BATCH}, seq "
         f"{SEQ}")
-    log(f"main path {comm_mode}: losses {losses}; bits "
-        f"{metrics['bits'].item():.0f} (structural); launches {launches}, of "
-        f"which accumulating dequant {acc_launches} (as expected)")
-    log(f"main path {comm_mode}: step seconds {[round(t, 4) for t in step_s]}"
-        f"; peak memory allocated {peak / 2**30:.2f} GiB")
+    log(f"{what}: losses {losses}; bits {metrics['bits'].item():.0f} "
+        f"(structural); launches {launches}, of which accumulating dequant "
+        f"{acc_launches} (as expected)")
+    log(f"{what}: step seconds {[round(t, 4) for t in step_s]}; peak "
+        f"memory allocated {peak / 2**30:.2f} GiB")
     phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh)
     return launches
 
@@ -623,26 +784,34 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh):
     _, t["adamw"] = timed(lambda: optimizer.update(g_bar, state.opt,
                                                    state.params))
     total = sum(t.values())
-    log(f"breakdown {tcfg.compression.comm_mode} (s): " + ", ".join(
-        f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items()))
+    log(f"breakdown {cfg.name} {tcfg.compression.comm_mode} (s): "
+        + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items()))
 
 
 def main():
     card = phase_card()
     from repro_torch.configs import get_config
 
-    cfg = get_config("qwen3-0.6b").with_(dtype="float32")
+    qwen = get_config("qwen3-0.6b").with_(dtype="float32")
+    rwkv = get_config("rwkv6-3b").with_(dtype="float32", n_layers=RWKV_LAYERS)
     phase_build()
-    kernels = phase_kernels(cfg) + [phase_ring_kernels(cfg)]
-    for mode in ("dense", "q8_ring_fused"):
-        phase_cross_check(mode)
+    kernels = (phase_kernels(qwen, also=(rwkv,)) + [phase_ring_kernels(qwen)]
+               + phase_wkv6_kernels(rwkv))
+    paths = [(qwen, "dense"), (qwen, "q8_ring_fused"), (rwkv, "dense")]
+    for cfg, mode in paths:
+        phase_cross_check(cfg.name, mode)
     by_path = {}
-    for mode in ("dense", "q8_ring_fused"):
-        by_path[mode] = phase_main_path(cfg, mode)
+    for cfg, mode in paths:
+        by_path[f"{cfg.name} {mode}"] = phase_main_path(cfg, mode)
         torch.cuda.empty_cache()
+    # each kernel's launches on the path of the slice that ported it: the
+    # q8 kernels on the ring path (which runs all three), WKV6 on RWKV-6's
+    own_path = {"wkv6_forward": "rwkv6-3b dense",
+                "wkv6_backward": "rwkv6-3b dense"}
     for k in kernels:
-        # this slice's main path (the ring) runs every kernel
-        k["launches"] = by_path["q8_ring_fused"][k["name"]]
+        k["launches"] = by_path[own_path.get(k["name"],
+                                             "qwen3-0.6b q8_ring_fused")][
+            k["name"]]
         k["launches_by_path"] = {m: c[k["name"]] for m, c in by_path.items()}
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

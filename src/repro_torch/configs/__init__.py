@@ -1,11 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolves here.  The port
-registers only the architectures it runs (qwen3-0.6b for now)."""
+registers only the architectures it runs (qwen3-0.6b, rwkv6-3b)."""
 
-from repro_torch.configs import qwen3_06b
+from repro_torch.configs import qwen3_06b, rwkv6_3b
 from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
 
 _MODULES = {
     "qwen3-0.6b": qwen3_06b,
+    "rwkv6-3b": rwkv6_3b,
 }
 
 ARCH_IDS = tuple(_MODULES)

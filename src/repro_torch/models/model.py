@@ -1,4 +1,4 @@
-"""Dense decoder LM assembly -- the dense path of the reference's
+"""LM assembly -- the dense and the ssm (RWKV-6) paths of the reference's
 ``repro/models/model.py``:
 
     init_params(cfg, generator=, device=)  -> params
@@ -25,15 +25,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as R6
 
 Params = Dict[str, torch.Tensor]
 
 _BLOCKS = "blocks/"
 
 
+ONES, ZEROS = ("full", 1.0), ("full", 0.0)
+
+
 def _dense_block_specs(cfg: ModelConfig):
     """(relative path, shape, init) of one dense block; init is a normal
-    std, or ``"ones"``/``"zeros"``."""
+    std, or ``("full", value)``."""
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
@@ -42,33 +46,37 @@ def _dense_block_specs(cfg: ModelConfig):
         ("attn/wk", (d, kv * dh), 0.02),
         ("attn/wv", (d, kv * dh), 0.02),
         ("attn/wo", (h * dh, d), out_std),
-        ("attn_norm/scale", (d,), "ones"),
-        ("mlp_norm/scale", (d,), "ones"),
+        ("attn_norm/scale", (d,), ONES),
+        ("mlp_norm/scale", (d,), ONES),
         ("mlp/w_gate", (d, f), 0.02),
         ("mlp/w_up", (d, f), 0.02),
         ("mlp/w_down", (f, d), out_std),
     ]
     if cfg.qkv_bias:
-        specs += [("attn/bq", (h * dh,), "zeros"),
-                  ("attn/bk", (kv * dh,), "zeros"),
-                  ("attn/bv", (kv * dh,), "zeros")]
+        specs += [("attn/bq", (h * dh,), ZEROS),
+                  ("attn/bk", (kv * dh,), ZEROS),
+                  ("attn/bv", (kv * dh,), ZEROS)]
     if cfg.qk_norm:
-        specs += [("attn/q_norm/scale", (dh,), "ones"),
-                  ("attn/k_norm/scale", (dh,), "ones")]
+        specs += [("attn/q_norm/scale", (dh,), ONES),
+                  ("attn/k_norm/scale", (dh,), ONES)]
     return specs
+
+
+def _rwkv_block_specs(cfg: ModelConfig):
+    """(relative path, shape, init) of one RWKV-6 block."""
+    d = cfg.d_model
+    return [("ln1/scale", (d,), ONES), ("ln2/scale", (d,), ONES),
+            *((f"time/{n}", s, i) for n, s, i in R6.time_mix_specs(cfg)),
+            *((f"channel/{n}", s, i) for n, s, i in R6.channel_mix_specs(cfg))]
 
 
 def param_specs(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...], object]]:
     """Every leaf ``(path, shape, init)`` in the reference's flatten order."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet: ROADMAP queue 1, "
-            f"item 9 (other architectures)"
-        )
+    block_specs, _ = _family(cfg)
     specs = [(_BLOCKS + name, (cfg.n_layers, *shape), init)
-             for name, shape, init in _dense_block_specs(cfg)]
+             for name, shape, init in block_specs(cfg)]
     specs += [("embed/table", (cfg.vocab_size, cfg.d_model), 0.02),
-              ("final_norm/scale", (cfg.d_model,), "ones")]
+              ("final_norm/scale", (cfg.d_model,), ONES)]
     if not cfg.tie_embeddings:
         specs.append(("head/w", (cfg.d_model, cfg.vocab_size), 0.02))
     # jax.tree_util orders dict keys sorted at every level
@@ -82,15 +90,13 @@ def leaf_paths(cfg: ModelConfig) -> List[str]:
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device) -> Params:
     """Random params with the reference's distributions (normal with the
-    same std, ones for norm scales); the draws are torch's, not JAX's --
+    same std, the same constants); the draws are torch's, not JAX's --
     ``repro_torch.weights.params_from_jax`` carries the reference's."""
     dtype = getattr(torch, cfg.dtype)
     params = {}
     for path, shape, init in param_specs(cfg):
-        if init == "ones":
-            t = torch.ones(shape, dtype=dtype, device=device)
-        elif init == "zeros":
-            t = torch.zeros(shape, dtype=dtype, device=device)
+        if isinstance(init, tuple):
+            t = torch.full(shape, init[1], dtype=dtype, device=device)
         else:
             t = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=device).mul_(init).to(dtype)
@@ -111,8 +117,32 @@ def _dense_block_fwd(p, x, cfg: ModelConfig):
     return x
 
 
+def _rwkv_block_fwd(p, x, cfg: ModelConfig):
+    x = x + R6.time_mix_apply(_sub(p, "time/"),
+                              L.rmsnorm(p["ln1/scale"], x, cfg.norm_eps), cfg)
+    x = x + R6.channel_mix_apply(_sub(p, "channel/"),
+                                 L.rmsnorm(p["ln2/scale"], x, cfg.norm_eps))
+    return x
+
+
 def _sub(p: Params, prefix: str) -> Params:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+#: the architecture families the port runs: block leaf specs, block forward
+_FAMILIES = {
+    "dense": (_dense_block_specs, _dense_block_fwd),
+    "ssm": (_rwkv_block_specs, _rwkv_block_fwd),
+}
+
+
+def _family(cfg: ModelConfig):
+    if cfg.arch_type not in _FAMILIES:
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} is not ported yet: ROADMAP queue 1, "
+            f"item 9 (other architectures)"
+        )
+    return _FAMILIES[cfg.arch_type]
 
 
 def forward_train(params: Params, cfg: ModelConfig, batch
@@ -121,8 +151,9 @@ def forward_train(params: Params, cfg: ModelConfig, batch
     x = L.embed(params["embed/table"], batch["tokens"])
     stacked = {k[len(_BLOCKS):]: v.unbind(0)
                for k, v in params.items() if k.startswith(_BLOCKS)}
+    _, block_fwd = _family(cfg)
     for layer in range(cfg.n_layers):
-        x = _dense_block_fwd({k: v[layer] for k, v in stacked.items()}, x, cfg)
+        x = block_fwd({k: v[layer] for k, v in stacked.items()}, x, cfg)
     x = L.rmsnorm(params["final_norm/scale"], x, cfg.norm_eps)
     logits = L.lm_head(params, x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
