@@ -42,6 +42,24 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 7. The RWKV-6 main path: the same 3 dense steps of rwkv6-3b at full
    width and RWKV_LAYERS of its 32 layers, with the same checks; each
    layer launches one WKV6 forward and one backward per worker and step.
+8. The natural and top-k kernels (``shifted_natural_2d``,
+   ``block_topk_2d``) bitwise against their plain versions at every
+   qwen3-0.6b leaf layout their wrappers give (f32) and on an edge set
+   (zeros, subnormals, NaN, infinities, powers of two and the floats just
+   below them, bf16; for top-k also ties, a NaN in a block, k = 1, k = the
+   whole block, a padded last block); both timed at the embedding leaf.
+   Cross-checks as in 4 for DIANA + ``natural`` and for ``ef21`` +
+   ``topk``.
+9. Two more full-size qwen3-0.6b paths, 3 steps each with the checks of
+   5: DIANA + ``natural`` + dense (the reference's default
+   configuration) and ``ef21`` + ``topk`` (q = 0.1).
+10. The entry points of the two kernels, ``shifted_natural(rand, g, h)``
+   and ``block_topk(g, q=0.1)``, over all 13 full-size qwen3-0.6b
+   leaves, with g worker 0's gradient of a fourth step of the natural
+   path and h its DIANA shift then: each kernel launched exactly 13
+   times, every output bitwise equal to its plain version, and the
+   natural output equal to ``h + NaturalCompression`` of ``g - h`` with
+   the same uniforms wherever ``|g - h| >= 2^-126``.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +87,8 @@ WKV_TOL = 1e-4              # rtol and atol of the WKV6 kernels vs plain
                             # (du: atol relative to its largest entry)
 WKV_LONG_T = 1003           # divided by neither the 8-step checkpoint chunk
                             # nor the forward's 16-step stage
+TOPK_Q = 0.1                # keep fraction of the top-k codec and wrapper
+TINY = 2.0 ** -126          # smallest normal f32
 
 
 def log(msg):
@@ -114,6 +134,27 @@ def bound_ms(n_bytes, n_ops):
 
 def bits_of(t):
     return t.contiguous().view(torch.int32)
+
+
+def same_bits(a, b):
+    """Elementwise (as f32): equal bit patterns, or both NaN (a NaN's
+    payload is not part of any contract here)."""
+    a, b = a.float(), b.float()
+    return (bits_of(a) == bits_of(b)) | (a.isnan() & b.isnan())
+
+
+def finite_err(a, b):
+    """max |a - b| over the elements where both are finite (0 if none)."""
+    a, b = a.float(), b.float()
+    both = a.isfinite() & b.isfinite()
+    return (a[both] - b[both]).abs().max().item() if both.any() else 0.0
+
+
+def lanes(x, rows_pad):
+    """``x`` flattened and zero-padded to the kernels' (rows_pad, 128)."""
+    flat = x.reshape(-1)
+    return torch.nn.functional.pad(
+        flat, (0, rows_pad * 128 - flat.numel())).reshape(rows_pad, 128)
 
 
 class HostNoise:
@@ -506,13 +547,266 @@ def phase_wkv6_kernels(cfg):
     ]
 
 
-def _slice_configs(cfg, comm_mode="dense"):
+def natural_edges():
+    """Zeros, +-subnormals, NaN, +-inf and normal values against each
+    other, and 2^e and one and two ulps below it for every exponent of a
+    normal f32 (both signs; h = 0 and h unit normal): (g, h) (R, 128) f32
+    on the card."""
+    f32 = np.float32
+    special = np.array([0.0, -0.0, 1e-39, -1e-39, 1e-38, 3e-38, -2e-38,
+                        1.5e-38, TINY, np.nan, np.inf, -np.inf, 1.0, -2.5,
+                        3.0e38], f32)
+    gs, hs = (a.ravel() for a in np.meshgrid(special, special))
+    p2 = np.ldexp(f32(1), np.arange(-126, 128)).astype(f32)
+    below1 = np.nextafter(p2, f32(0))
+    lat = np.concatenate([p2, below1, np.nextafter(below1, f32(0))])
+    lat = np.concatenate([lat, -lat, lat])
+    lat_h = np.concatenate([np.zeros(2 * lat.size // 3, f32),
+                            np.random.default_rng(4).standard_normal(
+                                lat.size // 3).astype(f32)])
+    g, h = np.concatenate([gs, lat]), np.concatenate([hs, lat_h])
+    rows = -(-g.size // 128)
+    return tuple(lanes(torch.from_numpy(a).cuda(), rows) for a in (g, h))
+
+
+def topk_edges(gen):
+    """(name, x (R, 128) f32 on the card, k, block_rows) cases beyond the
+    leaf layouts: exact ties across the k-th magnitude, one NaN in a
+    block, infinities with subnormals and tiny and huge blocks, k = 1 and
+    k = the whole block, block_rows 1, 8 and 28."""
+    dev = torch.device("cuda")
+    x = torch.randn((128, 128), generator=gen, device=dev)
+    ties = torch.round(x * 2.0)
+    nan = x.clone()
+    nan[0, 5] = float("nan")
+    special = x.clone()
+    special[0, :3] = torch.tensor([float("inf"), float("-inf"), 1e-39])
+    special[1:64] *= 1e-30
+    special[64:] *= 1e37
+    cases = []
+    for name, t in (("ties", ties), ("nan", nan), ("special", special)):
+        for k, block in ((819, 64), (1, 64), (8192, 64), (102, 8), (358, 28),
+                         (13, 1), (128, 1)):
+            rows = 128 if 128 % block == 0 else 2 * block
+            cases.append((name, t[:rows].contiguous(), k, block))
+    return cases
+
+
+def phase_natural_topk_kernels(cfg):
+    """``shifted_natural_2d`` and ``block_topk_2d`` bitwise against their
+    plain versions on the card: at every leaf layout their wrappers give
+    ``cfg``'s leaves (f32, gradient-sized g and h), on the edge sets, in
+    bf16; then both timed at the largest layout (the embedding's)."""
+    from repro_torch.kernels.natural.kernel import shifted_natural_2d
+    from repro_torch.kernels.natural.ops import natural_layout
+    from repro_torch.kernels.natural.ref import shifted_natural_ref
+    from repro_torch.kernels.topk.kernel import block_topk_2d
+    from repro_torch.kernels.topk.ops import block_topk, topk_layout
+    from repro_torch.kernels.topk.ref import block_topk_bisect_ref
+    from repro_torch.models.model import param_specs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = {"shifted_natural_2d": 0.0, "block_topk_2d": 0.0}
+
+    def nat(g, h, u, block, what):
+        out = shifted_natural_2d(g, h, u, block_rows=block)
+        ref = shifted_natural_ref(g, h, u)
+        torch.cuda.synchronize()
+        check(bool(same_bits(out, ref).all()) and out.dtype == ref.dtype,
+              f"shifted_natural_2d differs from its plain version: {what}")
+        err["shifted_natural_2d"] = max(err["shifted_natural_2d"],
+                                        finite_err(out, ref))
+
+    def topk(x, k, block, what):
+        out = block_topk_2d(x, k=k, block_rows=block)
+        ref = block_topk_bisect_ref(x, k=k, block=block)
+        torch.cuda.synchronize()
+        check(bool(same_bits(out, ref).all()) and out.dtype == ref.dtype,
+              f"block_topk_2d differs from its plain version: {what}")
+        err["block_topk_2d"] = max(err["block_topk_2d"], finite_err(out, ref))
+
+    sizes = [math.prod(shape) for _, shape, _ in param_specs(cfg)]
+    nat_layouts = sorted({natural_layout(n)[1:] for n in sizes}, reverse=True)
+    topk_layouts = sorted({topk_layout(n, TOPK_Q) for n in sizes},
+                          key=lambda t: t[1], reverse=True)
+    for block, rows in nat_layouts:
+        g = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
+        h = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        nat(g, h, u, block, f"({rows}, 128) block {block}")
+        if rows <= 256:
+            nat(g.bfloat16(), h.bfloat16(), u, block,
+                f"bf16 ({rows}, 128) block {block}")
+        del g, h, u
+    for block, rows, k in topk_layouts:
+        x = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
+        topk(x, k, block, f"({rows}, 128) block {block} k {k}")
+        if rows <= 256:
+            topk(x.bfloat16(), k, block, f"bf16 ({rows}, 128) block {block}")
+        del x
+    log(f"natural/topk kernels: bitwise equal to plain at every qwen3-0.6b "
+        f"leaf layout (natural {nat_layouts}; topk (block, rows, k) "
+        f"{topk_layouts}), f32, and bf16 at the small ones")
+
+    g, h = natural_edges()
+    for seed in range(3):
+        u = torch.rand(g.shape, generator=gen, device=dev)
+        nat(g, h, u, 1, f"edge set, u draw {seed}")
+        nat(g.bfloat16(), h.bfloat16(), u, 1, f"bf16 edge set, draw {seed}")
+    for name, x, k, block in topk_edges(gen):
+        topk(x, k, block, f"{name} block {block} k {k}")
+        topk(x.bfloat16(), k, block, f"bf16 {name} block {block} k {k}")
+    # a padded last block through the wrapper: 10,000 elements are 79 rows,
+    # padded to 128 (two blocks of 64, the second 49 rows of zeros)
+    x = torch.randn(10_000, generator=gen, device=dev)
+    out = block_topk(x, q=TOPK_Q)
+    block, rows_pad, k = topk_layout(x.numel(), TOPK_Q)
+    ref = block_topk_bisect_ref(lanes(x, rows_pad), k=k, block=block)
+    torch.cuda.synchronize()
+    check(bool(same_bits(out, ref.reshape(-1)[:x.numel()]).all()),
+          "block_topk differs from its plain version on a padded last block")
+    log("natural/topk kernels: bitwise equal to plain on the edge sets "
+        "(zeros, subnormals, NaN, inf, 2^e and 1-2 ulps below for every "
+        "exponent, bf16; ties, a NaN block, k = 1, k = block, block rows 1, "
+        "8, 28, a padded last block)")
+
+    # timing at the embedding's layout, no padding
+    block, rows = nat_layouts[0]
+    n = rows * 128
+    g = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
+    h = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
+    u = torch.rand((rows, 128), generator=gen, device=dev)
+    tblock, trows, k = topk_layouts[0]
+    t = {
+        "nat": time_ms(lambda: shifted_natural_2d(g, h, u, block_rows=block)),
+        "nat_plain": time_ms(lambda: shifted_natural_ref(g, h, u)),
+        "topk": time_ms(lambda: block_topk_2d(g, k=k, block_rows=tblock)),
+        "topk_plain": time_ms(lambda: block_topk_bisect_ref(g, k=k,
+                                                            block=tblock)),
+    }
+    # natural: g, h, u read once and out written once (16 bytes an
+    # element); ~15 operations an element (subtract, abs, the exponent
+    # and mantissa masks, compare, select, doubling, sign, add, three
+    # flush tests).  top-k: x read once, out written once (8 bytes);
+    # 32 bisection steps of a compare and an add an element
+    nb, nby = bound_ms(16 * n, 15 * n)
+    tb, tby = bound_ms(8 * n, 2 * 32 * n)
+    log(f"natural/topk timing at ({rows}, 128) f32 (the embedding leaf), "
+        f"median of 20 (ms): shifted_natural_2d {t['nat']:.4f} (plain "
+        f"{t['nat_plain']:.4f}, bound {nb:.4f} by {nby}); block_topk_2d "
+        f"block {tblock} k {k} {t['topk']:.4f} (plain {t['topk_plain']:.4f}"
+        f", bound {tb:.4f} by {tby}); no single PyTorch call computes either")
+    del g, h, u
+    torch.cuda.empty_cache()
+    return [
+        {"name": "shifted_natural_2d", "route": "cuda",
+         "source": "src/repro_torch/kernels/natural/csrc/natural.cu",
+         "replaces": "src/repro/kernels/natural/kernel.py:51",
+         "max_abs_err": err["shifted_natural_2d"], "ms": t["nat"],
+         "plain_ms": t["nat_plain"], "bound_ms": nb, "bound_by": nby,
+         "library_ms": None},
+        {"name": "block_topk_2d", "route": "cuda",
+         "source": "src/repro_torch/kernels/topk/csrc/topk.cu",
+         "replaces": "src/repro/kernels/topk/kernel.py:51",
+         "max_abs_err": err["block_topk_2d"], "ms": t["topk"],
+         "plain_ms": t["topk_plain"], "bound_ms": tb, "bound_by": tby,
+         "library_ms": None},
+    ]
+
+
+def phase_entry_points(g0, h0):
+    """The slice's entry points over every leaf: ``shifted_natural(rand,
+    g, h)`` and ``block_topk(g, q=TOPK_Q)``, g worker 0's gradient and h
+    its DIANA shift (full-size qwen3-0.6b, from the natural path).  The
+    launch counts are reset just before and read just after; then every
+    output is held bitwise against the plain versions, and the natural
+    output against ``h + NaturalCompression.decode(encode(g - h))`` with
+    the same uniforms wherever ``|g - h| >= 2^-126`` (the kernel and the
+    codec floor log2 differently below that) and neither h nor the
+    output is subnormal (the kernel flushes them)."""
+    from repro_torch.core.compressors import NaturalCompression, ShapeDtype
+    from repro_torch.kernels.natural.kernel import shifted_natural_2d
+    from repro_torch.kernels.natural.ops import natural_layout, shifted_natural
+    from repro_torch.kernels.natural.ref import shifted_natural_ref
+    from repro_torch.kernels.topk.kernel import block_topk_2d
+    from repro_torch.kernels.topk.ops import block_topk, topk_layout
+    from repro_torch.kernels.topk.ref import block_topk_bisect_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    drawn, nat_out, topk_out = {}, {}, {}
+
+    def draw(key):
+        def rand(shape):
+            drawn[key] = torch.rand(shape, generator=gen, device="cuda")
+            return drawn[key]
+        return rand
+
+    torch.cuda.synchronize()
+    shifted_natural_2d.launches = block_topk_2d.launches = 0
+    t0 = time.perf_counter()
+    for key in g0:
+        nat_out[key] = shifted_natural(draw(key), g0[key], h0[key])
+        topk_out[key] = block_topk(g0[key], q=TOPK_Q)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"shifted_natural_2d": shifted_natural_2d.launches,
+                "block_topk_2d": block_topk_2d.launches}
+    leaves = len(g0)
+    check(launches == {"shifted_natural_2d": leaves, "block_topk_2d": leaves},
+          f"entry points: launches {launches}, expected {leaves} each")
+
+    codec = NaturalCompression()
+    compared = total = kept = 0
+    for key, g in g0.items():
+        h, n = h0[key], g.numel()
+        _, block, rows_pad = natural_layout(n)
+        ref = shifted_natural_ref(lanes(g, rows_pad), lanes(h, rows_pad),
+                                  drawn[key]).reshape(-1)[:n]
+        check(bool(same_bits(nat_out[key].reshape(-1), ref).all()),
+              f"shifted_natural differs from its plain version at {key}")
+        x = g - h
+        u = drawn[key].reshape(-1)[:n].reshape(g.shape)
+        payload, meta = codec.encode(lambda shape: u, x)
+        via = h + codec.decode(payload, meta, ShapeDtype.of(x))
+        mask = ((x.abs() >= TINY) & ((h == 0) | (h.abs() >= TINY))
+                & ((via == 0) | (via.abs() >= TINY)))
+        check(bool(same_bits(nat_out[key][mask], via[mask]).all()),
+              f"shifted_natural differs from h + NaturalCompression(g - h) "
+              f"at {key}")
+        compared += int(mask.sum())
+        total += n
+        tblock, trows, k = topk_layout(n, TOPK_Q)
+        tref = block_topk_bisect_ref(lanes(g, trows), k=k,
+                                     block=tblock).reshape(-1)[:n]
+        check(bool(same_bits(topk_out[key].reshape(-1), tref).all()),
+              f"block_topk differs from its plain version at {key}")
+        kept += int((topk_out[key] != 0).sum())
+        del payload, via, mask, x, u, ref, tref
+    log(f"entry points over {leaves} full-size qwen3-0.6b leaves ({total:,} "
+        f"elements, worker 0's gradient and DIANA shift): launches "
+        f"{launches} (as expected), {secs:.4f} s for both wrappers; outputs "
+        f"bitwise equal to the plain versions; natural equal to h + "
+        f"NaturalCompression(g - h) at {compared:,} of {total:,} elements "
+        f"(the rest below 2^-126); top-k kept {kept:,} ({kept / total:.4f})")
+    return launches
+
+
+def _slice_configs(cfg, comm_mode="dense", codec="q8_block"):
+    """DIANA (or the comm mode's own rule: ``ef21``) with ``codec``."""
     from repro_torch.configs.base import CompressionConfig, TrainConfig
 
-    comp = CompressionConfig(enabled=True, compressor="q8_block",
-                             shift_rule="diana", comm_mode=comm_mode)
+    comp = CompressionConfig(
+        enabled=True, compressor=codec,
+        compressor_kwargs=(("q", TOPK_Q),) if codec == "topk" else (),
+        shift_rule="diana", comm_mode=comm_mode)
     return TrainConfig(learning_rate=LR, total_steps=STEPS,
                        warmup_steps=1, compression=comp)
+
+
+def shift_rate(comp):
+    """How much of a message the shift integrates: DIANA's alpha, EF21's 1."""
+    return 1.0 if comp.effective_shift_rule == "ef21" else comp.shift_alpha
 
 
 def lattice(msg, block_rows=64):
@@ -530,6 +824,23 @@ def lattice(msg, block_rows=64):
             .reshape(msg.shape))
 
 
+def message_step(msg, codec, block_rows=64):
+    """Per element, how far one flipped rounding (or, for top-k, one
+    traded place at a leaf's k-th magnitude) can move a W-stacked decoded
+    message: the q8 lattice step; for natural the message's own
+    magnitude (a neighbouring power of two is at most that far); for
+    top-k the worker's k-th magnitude."""
+    if codec == "q8_block":
+        return lattice(msg, block_rows)
+    if codec == "natural":
+        return msg.abs()
+    w = msg.shape[0]
+    flat = msg.reshape(w, -1).abs()
+    k = max(1, round(TOPK_Q * flat.shape[1]))
+    kth = torch.topk(flat, k, dim=1).values[:, -1]
+    return kth.reshape((w,) + (1,) * (msg.dim() - 1)).expand(msg.shape)
+
+
 def ring_tile_max(step, n, block_rows=64):
     """Per element, the largest ``step`` over its ring tile: the leaf
     flattened, zero-padded and cut into n chunks and (block, 128) tiles
@@ -545,7 +856,7 @@ def ring_tile_max(step, n, block_rows=64):
             .reshape(step.shape))
 
 
-def phase_cross_check(arch, comm_mode):
+def phase_cross_check(arch, comm_mode, codec="q8_block"):
     """One smoke-config step on the card and on the CPU, same state and
     uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
 
@@ -571,17 +882,24 @@ def phase_cross_check(arch, comm_mode):
     * L / (1 - (n - 1) / 127): 2n ring steps over W, plus the flipped
     messages' one step each over W.  A flip at a ring tile's maximum
     moves that tile's scale and so re-rounds much of the tile, so the
-    share of ``h_bar`` elements allowed off is RARE_RING."""
+    share of ``h_bar`` elements allowed off is RARE_RING.
+
+    With the ``natural`` and ``topk`` codecs the lattice step is
+    ``message_step``'s: a flipped natural rounding moves a message
+    element by at most its own magnitude, a top-k place traded at the
+    k-th magnitude by at most that magnitude; the shift integrates the
+    message at DIANA's alpha or EF21's 1 (``shift_rate``)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
     TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
-    ring = comm_mode != "dense"
+    ring = comm_mode.startswith("q8_ring")
     cfg = get_smoke_config(arch).with_(dtype="float32")
-    tcfg = _slice_configs(cfg, comm_mode)
-    alpha = tcfg.compression.shift_alpha
+    tcfg = _slice_configs(cfg, comm_mode, codec)
+    alpha = shift_rate(tcfg.compression)
+    what = f"cross-check {arch} {comm_mode} {codec}"
     block_rows = tcfg.compression.q8_block_rows
     ring_growth = (2 * RING + 1) / (1 - (RING - 1) / 127)
     batch = TokenStream(cfg, 32, BATCH).batch(0)
@@ -603,17 +921,18 @@ def phase_cross_check(arch, comm_mode):
         results[dev] = (state, m)
     (sc, mc), (sg, mg) = results["cpu"], results["cuda"]
     check(mg["bits"].item() == mc["bits"].item(),
-          f"cross-check {arch} {comm_mode}: bits differ")
+          f"{what}: bits differ")
     lc, lg = mc["loss"].item(), mg["loss"].item()
     check(abs(lg - lc) <= 1e-5 * abs(lc),
-          f"cross-check {arch} {comm_mode}: loss {lg} vs {lc}")
+          f"{what}: loss {lg} vs {lc}")
 
     counts, worst_share = {}, {}
     for name in ("h", "h_bar"):
         flipped = total = 0
         worst_share[name] = 0.0
         for k, h1 in sc.h.items():
-            lat = lattice((h1 - s0.h[k]) / alpha, block_rows)  # CPU's msgs
+            lat = message_step((h1 - s0.h[k]) / alpha, codec,   # CPU's msgs
+                               block_rows)
             if name == "h_bar":      # a flip moves the mean by lat / W
                 lat = lat.amax(dim=0)
                 if ring:
@@ -623,7 +942,7 @@ def phase_cross_check(arch, comm_mode):
             noise = TIGHT * ref.abs().max().item()
             bound = alpha * lat * 1.001 + noise
             check(bool((d <= bound).all()),
-                  f"cross-check {arch} {comm_mode}: {name}[{k}] beyond its "
+                  f"{what}: {name}[{k}] beyond its "
                   f"lattice bound")
             worst_share[name] = max(worst_share[name], torch.where(
                 bound > 0, d / bound, 0.0).max().item())
@@ -631,7 +950,7 @@ def phase_cross_check(arch, comm_mode):
             total += d.numel()
         share = RARE_RING if ring and name == "h_bar" else RARE
         check(flipped <= share * total,
-              f"cross-check {arch} {comm_mode}: {flipped} of {total} "
+              f"{what}: {flipped} of {total} "
               f"{name} elements flipped")
         counts[name] = (flipped, total)
     off = total = 0
@@ -641,12 +960,12 @@ def phase_cross_check(arch, comm_mode):
         worst = max(worst, d.max().item())
         off += int((d > TIGHT * ref.abs().max().item()).sum())
         total += d.numel()
-    check(worst <= 2 * LR, f"cross-check {arch} {comm_mode}: params differ "
+    check(worst <= 2 * LR, f"{what}: params differ "
                            f"by {worst}")
     check(off <= 1e-3 * total,
-          f"cross-check {arch} {comm_mode}: {off} of {total} params beyond "
+          f"{what}: {off} of {total} params beyond "
           f"f32 noise")
-    log(f"cross-check {arch} {comm_mode} (smoke config, 1 step, GPU vs CPU): "
+    log(f"{what} (smoke config, 1 step, GPU vs CPU): "
         f"loss {lg:.6f} vs {lc:.6f}, bits {mg['bits'].item():.0f} equal; "
         f"elements off: h {counts['h'][0]} of {counts['h'][1]}, h_bar "
         f"{counts['h_bar'][0]} of {counts['h_bar'][1]}; largest |diff| / "
@@ -655,15 +974,25 @@ def phase_cross_check(arch, comm_mode):
         f"noise {off} of {total}, max |diff| {worst:.3e}")
 
 
-def structural_bits(cfg, steps):
-    """The f32 bit counter the step must report, from leaf shapes alone."""
+def structural_bits(cfg, steps, codec="q8_block"):
+    """The f32 bit counter the step must report, from leaf shapes alone:
+    per leaf and worker, q8 the int8 lanes block and one f32 scale per
+    tile; natural 9 bits an element (8-bit exponent, 1-bit sign); top-k
+    k = round(q d) values of 32 bits and indices of ceil(log2 d) bits."""
     from repro_torch.kernels.q8ring.ops import q8_layout
     from repro_torch.models.model import param_specs
 
     step_bits = np.float32(0)
     for _, shape, _ in param_specs(cfg):
-        _, block, rows_pad = q8_layout(math.prod(shape))
-        leaf = W * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
+        d = math.prod(shape)
+        if codec == "natural":
+            leaf = W * 9 * d
+        elif codec == "topk":
+            k = max(1, round(TOPK_Q * d))
+            leaf = W * k * (32 + math.ceil(math.log2(max(d, 2))))
+        else:
+            _, block, rows_pad = q8_layout(d)
+            leaf = W * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
         step_bits = np.float32(step_bits + np.float32(leaf))
     total = np.float32(0)
     for _ in range(steps):
@@ -671,19 +1000,23 @@ def structural_bits(cfg, steps):
     return float(total)
 
 
-def phase_main_path(cfg, comm_mode):
-    """3 steps of ``cfg`` in ``comm_mode`` (``dense``, or ``q8_ring_fused``
-    over a ``HostMesh(data=RING)`` on the card); returns the kernels'
-    launch counts of those steps."""
+def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False):
+    """3 steps of ``cfg`` in ``comm_mode`` (``dense`` or ``ef21``, or
+    ``q8_ring_fused`` over a ``HostMesh(data=RING)`` on the card) with
+    ``codec``; returns the kernels' launch counts of those steps and, with
+    ``keep``, worker 0's gradient of a fourth step and its shift before
+    it (the entry-point phase's inputs), else None."""
     from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.natural.kernel import shifted_natural_2d
     from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.topk.kernel import block_topk_2d
     from repro_torch.kernels.wkv6 import kernel as WK
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
-    ring = comm_mode != "dense"
+    ring = comm_mode.startswith("q8_ring")
     n = RING if ring else 1
-    tcfg = _slice_configs(cfg, comm_mode)
+    tcfg = _slice_configs(cfg, comm_mode, codec)
     mesh = HostMesh(data=n, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     state = init_state(0, cfg, tcfg, W)            # on the CUDA device
@@ -696,7 +1029,9 @@ def phase_main_path(cfg, comm_mode):
                 "q8_quantize_chunk_3d": K.q8_quantize_chunk_3d,
                 "q8_dequant_add_2d": K.q8_dequant_add_2d,
                 "wkv6_forward": WK.wkv6_forward,
-                "wkv6_backward": WK.wkv6_backward}
+                "wkv6_backward": WK.wkv6_backward,
+                "shifted_natural_2d": shifted_natural_2d,
+                "block_topk_2d": block_topk_2d}
     for fn in wrappers.values():
         fn.launches = 0
     K.q8_dequant_add_2d.acc_launches = 0
@@ -711,27 +1046,29 @@ def phase_main_path(cfg, comm_mode):
     acc_launches = K.q8_dequant_add_2d.acc_launches
     peak = torch.cuda.max_memory_allocated()
 
-    # leaves x workers x steps for the message encode and decode; per leaf
-    # and step the ring adds n chunk quantizes at each of its n positions,
-    # n - 1 accumulating dequants at each, and one all-gather decode per
-    # owner; an RWKV-6 layer runs one WKV6 forward and one backward per
-    # worker and step (no recompute)
+    # leaves x workers x steps for the q8 message encode and decode; per
+    # leaf and step the ring adds n chunk quantizes at each of its n
+    # positions, n - 1 accumulating dequants at each, and one all-gather
+    # decode per owner; an RWKV-6 layer runs one WKV6 forward and one
+    # backward per worker and step (no recompute).  The natural and top-k
+    # codecs are plain PyTorch, as the reference's are: no kernel
     leaves = len(state.params)
-    msgs = leaves * W * STEPS
+    msgs = leaves * W * STEPS if codec == "q8_block" else 0
     wkv = cfg.n_layers * W * STEPS if cfg.arch_type == "ssm" else 0
     expect = {"q8_quantize_2d": msgs,
               "q8_quantize_chunk_3d": leaves * n * n * STEPS if ring else 0,
               "q8_dequant_add_2d": msgs + (leaves * n * n * STEPS if ring
                                            else 0),
-              "wkv6_forward": wkv, "wkv6_backward": wkv}
+              "wkv6_forward": wkv, "wkv6_backward": wkv,
+              "shifted_natural_2d": 0, "block_topk_2d": 0}
     expect_acc = leaves * n * (n - 1) * STEPS if ring else 0
     check(all(math.isfinite(v) for v in losses), f"loss not finite: {losses}")
     check(all(torch.isfinite(p).all().item() for p in state.params.values()),
           "params not finite")
-    check(metrics["bits"].item() == structural_bits(cfg, STEPS),
+    check(metrics["bits"].item() == structural_bits(cfg, STEPS, codec),
           f"bits {metrics['bits'].item()} != structural "
-          f"{structural_bits(cfg, STEPS)}")
-    what = f"main path {cfg.name} {comm_mode}"
+          f"{structural_bits(cfg, STEPS, codec)}")
+    what = f"main path {cfg.name} {comm_mode} {codec}"
     check(launches == expect, f"{what}: launches {launches}, expected "
                               f"{expect}")
     check(acc_launches == expect_acc,
@@ -746,13 +1083,15 @@ def phase_main_path(cfg, comm_mode):
         f"{acc_launches} (as expected)")
     log(f"{what}: step seconds {[round(t, 4) for t in step_s]}; peak "
         f"memory allocated {peak / 2**30:.2f} GiB")
-    phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh)
-    return launches
+    h0 = {k: h[0].clone() for k, h in state.h.items()} if keep else None
+    g0 = phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep)
+    return launches, (g0, h0) if keep else None
 
 
-def phase_breakdown(cfg, tcfg, state, batch, mesh):
+def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
     """Device time of each phase of one more step, run piece by piece:
-    gradients, the round's messages, its aggregation, its apply, AdamW."""
+    gradients, the round's messages, its aggregation, its apply, AdamW.
+    With ``keep``, returns worker 0's gradients of that step."""
     from repro_torch.comm.channel import make_channel
     from repro_torch.dist.worker_grads import per_worker_grads, split_batch
     from repro_torch.models import model as M
@@ -780,12 +1119,15 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh):
         state.noise, m))
     (g_bar, _, _), t["apply"] = timed(lambda: rule.apply(
         grads, m, m_bar, state.h, state.h_bar, None))
+    g0 = {k: g[0].clone() for k, g in grads.items()} if keep else None
     del grads, m, m_bar
     _, t["adamw"] = timed(lambda: optimizer.update(g_bar, state.opt,
                                                    state.params))
     total = sum(t.values())
-    log(f"breakdown {cfg.name} {tcfg.compression.comm_mode} (s): "
+    log(f"breakdown {cfg.name} {tcfg.compression.comm_mode} "
+        f"{tcfg.compression.compressor} (s): "
         + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items()))
+    return g0
 
 
 def main():
@@ -796,23 +1138,34 @@ def main():
     rwkv = get_config("rwkv6-3b").with_(dtype="float32", n_layers=RWKV_LAYERS)
     phase_build()
     kernels = (phase_kernels(qwen, also=(rwkv,)) + [phase_ring_kernels(qwen)]
-               + phase_wkv6_kernels(rwkv))
-    paths = [(qwen, "dense"), (qwen, "q8_ring_fused"), (rwkv, "dense")]
-    for cfg, mode in paths:
-        phase_cross_check(cfg.name, mode)
+               + phase_wkv6_kernels(rwkv) + phase_natural_topk_kernels(qwen))
+    paths = [(qwen, "dense", "q8_block"), (qwen, "q8_ring_fused", "q8_block"),
+             (rwkv, "dense", "q8_block"), (qwen, "dense", "natural"),
+             (qwen, "ef21", "topk")]
+    for cfg, mode, codec in paths:
+        phase_cross_check(cfg.name, mode, codec)
     by_path = {}
-    for cfg, mode in paths:
-        by_path[f"{cfg.name} {mode}"] = phase_main_path(cfg, mode)
+    for cfg, mode, codec in paths:
+        by_path[f"{cfg.name} {mode} {codec}"], kept = phase_main_path(
+            cfg, mode, codec, keep=codec == "natural")
+        if kept is not None:
+            entry_inputs = kept
+        del kept
         torch.cuda.empty_cache()
+    by_path["qwen3-0.6b entry points"] = phase_entry_points(*entry_inputs)
+    del entry_inputs
     # each kernel's launches on the path of the slice that ported it: the
-    # q8 kernels on the ring path (which runs all three), WKV6 on RWKV-6's
-    own_path = {"wkv6_forward": "rwkv6-3b dense",
-                "wkv6_backward": "rwkv6-3b dense"}
+    # q8 kernels on the ring path (which runs all three), WKV6 on RWKV-6's,
+    # the natural and top-k kernels on their entry points
+    own_path = {"wkv6_forward": "rwkv6-3b dense q8_block",
+                "wkv6_backward": "rwkv6-3b dense q8_block",
+                "shifted_natural_2d": "qwen3-0.6b entry points",
+                "block_topk_2d": "qwen3-0.6b entry points"}
     for k in kernels:
-        k["launches"] = by_path[own_path.get(k["name"],
-                                             "qwen3-0.6b q8_ring_fused")][
-            k["name"]]
-        k["launches_by_path"] = {m: c[k["name"]] for m, c in by_path.items()}
+        k["launches"] = by_path[own_path.get(
+            k["name"], "qwen3-0.6b q8_ring_fused q8_block")][k["name"]]
+        k["launches_by_path"] = {m: c.get(k["name"], 0)
+                                 for m, c in by_path.items()}
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ port runs.
 ``MeshChannel`` is the production aggregation of the stacked-worker
 step over a ``launch.mesh.HostMesh``, in the ``dense`` (exact mean),
 ``q8_ring`` (``Int8Stochastic`` ring) or ``q8_ring_fused`` (the ring on
-the q8 kernels) format (``dist.collectives``).  The other aggregation
+the q8 kernels) format (``dist.collectives``); the ``ef21`` and
+``efbv`` comm modes aggregate densely.  The other aggregation
 formats and channels raise ``NotImplementedError``, naming the ROADMAP
 item that adds them.
 """
@@ -29,8 +30,6 @@ Tree = Dict[str, torch.Tensor]
 #: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
 _NOT_PORTED = {
     "randk_shared": "ROADMAP queue 1, item 5 (collectives)",
-    "ef21": "ROADMAP queue 1, item 6 (training step and CLI)",
-    "efbv": "ROADMAP queue 1, item 6 (training step and CLI)",
     "q8_ring_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
     "efbv_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
     "q8_ring_fused_vjp": "ROADMAP queue 1, item 8 (fused backward encode)",
@@ -38,8 +37,8 @@ _NOT_PORTED = {
 }
 
 #: every comm mode the reference accepts: the ported ones first
-CHANNEL_MODES = ("dense", "q8_ring", "q8_ring_fused", "sim") + tuple(
-    _NOT_PORTED)
+CHANNEL_MODES = ("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv",
+                 "sim") + tuple(_NOT_PORTED)
 
 
 def _check_ported(mode: str):

@@ -87,8 +87,9 @@ class ModelConfig:
 class CompressionConfig:
     """How the DCGD-SHIFT layer is wired into the training step (same
     fields as the reference).  The port runs the ``dense``, ``q8_ring``,
-    ``q8_ring_fused`` and ``sim`` channels, the ``fixed``/``dcgd``/
-    ``diana`` rules and the ``identity``/``zero``/``int8``/``q8_block``
+    ``q8_ring_fused``, ``ef21``, ``efbv`` and ``sim`` channels, the
+    ``fixed``/``dcgd``/``diana``/``ef21``/``efbv`` rules and the
+    ``identity``/``zero``/``int8``/``q8_block``/``natural``/``topk``
     codecs; the other values raise ``NotImplementedError`` where they are
     resolved."""
     enabled: bool = True
@@ -147,6 +148,8 @@ class CompressionConfig:
             "fixed": {},
             "dcgd": {},
             "diana": dict(alpha=self.shift_alpha),
+            "ef21": {},
+            "efbv": dict(eta=self.efbv_eta, nu=self.efbv_nu),
         }
         if rule_name not in rule_kwargs:
             return q, make_shift_rule(rule_name)  # raises, naming the queue

@@ -21,11 +21,14 @@ function:
         the dense round trip, derived as ``decode(encode(rand, x))``.
   ``wire_bits(payload)``
         structural bits of a payload, or of a list of per-worker
-        payloads: ``numel * dtype bits`` summed over tensor leaves.
+        payloads: ``numel * dtype bits`` summed over tensor leaves, and
+        ``numel * width`` over ``PackedBits`` leaves.
+  ``omega(d)`` / ``delta(d)``
+        variance constants of the classes U(omega) and B(delta).
 
 Codecs still to be ported (RandK, BernoulliP, NaturalDithering,
-NaturalCompression, TernGrad, TopK, ScaledSign, Induced) raise
-``NotImplementedError`` from ``make_compressor``.
+TernGrad, ScaledSign, Induced) raise ``NotImplementedError`` from
+``make_compressor``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels.natural.ref import TINY, ftz
 from repro_torch.kernels.q8ring.ref import fma_f32
 
 #: ROADMAP item that ports the remaining codecs
@@ -58,8 +62,34 @@ def _numel(shape) -> int:
     return int(math.prod(shape)) if shape else 1
 
 
+def _k_of(q: float, d: int) -> int:
+    """Number of kept coordinates for a sparsifier with keep-fraction q."""
+    return max(1, int(round(q * d)))
+
+
+def _index_bits(d: int) -> int:
+    """Bits to address one of d coordinates on the wire."""
+    return math.ceil(math.log2(max(d, 2)))
+
+
+class PackedBits:
+    """Payload leaf whose true wire width is ``width`` bits per element:
+    a field stored in a wider container dtype (1-bit signs in int8,
+    ceil(log2 d)-bit indices in int32); ``wire_bits`` charges ``numel *
+    width`` for it instead of the container's width."""
+
+    __slots__ = ("data", "width")
+
+    def __init__(self, data: torch.Tensor, width: int):
+        self.data = data
+        self.width = int(width)
+
+    def __repr__(self):
+        return f"PackedBits({self.data!r}, width={self.width})"
+
+
 def _tensor_leaves(payload):
-    if isinstance(payload, torch.Tensor):
+    if isinstance(payload, (torch.Tensor, PackedBits)):
         yield payload
     elif isinstance(payload, dict):
         for k in sorted(payload):
@@ -73,10 +103,14 @@ def _tensor_leaves(payload):
 
 def wire_bits(payload) -> float:
     """Structural wire size of a payload (dict, list of per-worker
-    payloads, or tensor), in bits: ``numel * dtype bits`` per tensor."""
+    payloads, or tensor), in bits: ``numel * dtype bits`` per tensor,
+    ``numel * width`` per ``PackedBits``."""
     total = 0
     for leaf in _tensor_leaves(payload):
-        total += _numel(leaf.shape) * leaf.element_size() * 8
+        if isinstance(leaf, PackedBits):
+            total += _numel(leaf.data.shape) * leaf.width
+        else:
+            total += _numel(leaf.shape) * leaf.element_size() * 8
     return float(total)
 
 
@@ -123,8 +157,16 @@ class Unbiased(Compressor):
 
 
 @dataclass(frozen=True)
-class Identity(Unbiased):
-    """I in U(0): full-precision message."""
+class Contractive(Compressor):
+    """Marker base for the class B(delta)."""
+
+    def delta(self, d: int) -> float:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class Identity(Unbiased, Contractive):
+    """I in U(0) and B(1): full-precision message."""
 
     def encode(self, rand, x):
         return {"values": x}, {}
@@ -134,6 +176,9 @@ class Identity(Unbiased):
 
     def omega(self, d):
         return 0.0
+
+    def delta(self, d):
+        return 1.0
 
     @property
     def stochastic(self):
@@ -150,6 +195,9 @@ class Zero(Compressor):
 
     def decode(self, payload, meta, like):
         return torch.zeros(like.shape, dtype=like.dtype, device=like.device)
+
+    def delta(self, d):
+        return 0.0
 
     @property
     def stochastic(self):
@@ -192,6 +240,102 @@ class Int8Stochastic(Unbiased):
         return d / (4.0 * self.levels**2)
 
 
+_MANT = 0x7FFFFF
+
+
+@dataclass(frozen=True)
+class NaturalCompression(Unbiased):
+    """C_nat -- stochastic rounding to the nearest powers of two.
+    omega = 1/8; 9 bits per coordinate on the wire (1-bit sign + 8-bit
+    exponent; zero is signalled by sign 0).  Elementwise and
+    shape-preserving.
+
+    Plain PyTorch, as the reference's is plain jnp (the fused
+    ``kernels/natural`` kernel computes the shifted estimator with its own
+    floor).  ``e = floor(log2(max(|x|, 2^-126)))`` and ``2^e`` are read
+    from the float's bits, exactly; XLA on the CPU flushes a subnormal x
+    to zero before the codec sees it, so the port does too (sign 0).  The
+    exponent codes span [-126, 128] (255 codes -> 8 wire bits); a NaN
+    encodes as sign 0 and an infinity as code 32767, as XLA's saturating
+    int16 convert gives them.  Decode builds ``2^code`` from bits (code
+    128 and above: inf).
+    """
+
+    def encode(self, rand, x):
+        xf = ftz(x.to(torch.float32))
+        a = torch.clamp_min(xf.abs(), TINY)
+        bits = a.view(torch.int32)
+        e = ((bits >> 23) - 127).to(torch.float32)
+        e = torch.where(torch.isfinite(a), e, a)            # inf, NaN as is
+        p_hi = ((bits & _MANT) | 0x3F800000).view(torch.float32) - 1.0
+        up = rand(tuple(x.shape)) < p_hi
+        e_out = (e + up.to(torch.float32)).nan_to_num(nan=0.0)
+        e_out = e_out.clamp(-32768.0, 32767.0).to(torch.int16)
+        sign = torch.sign(xf).nan_to_num(nan=0.0).to(torch.int8)
+        return {"exp": PackedBits(e_out, 8), "sign": PackedBits(sign, 1)}, {}
+
+    def decode(self, payload, meta, like):
+        code = payload["exp"].data.to(torch.int32).clamp(-126, 128)
+        mag = torch.where(code > 127, float("inf"),
+                          ((code + 127) << 23).view(torch.float32))
+        out = payload["sign"].data.to(torch.float32) * mag
+        return out.reshape(like.shape).to(like.dtype)
+
+    def omega(self, d):
+        return 0.125
+
+
+def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest magnitudes of the 1-D ``x``, int64, in
+    ``lax.top_k``'s order: magnitude descending, ties by ascending index
+    (``torch.topk`` promises no order among ties, so it only finds the
+    k-th magnitude).  Magnitudes are compared as the bit patterns of
+    ``|x|`` in f32, a total order in which NaN ranks above inf."""
+    key = x.to(torch.float32).abs().view(torch.int32)
+    kth = torch.topk(key, k, sorted=False).values.min()
+    above = key > kth
+    at = key == kth
+    need = k - int(above.sum())
+    take = above | (at & (torch.cumsum(at, 0, dtype=torch.int32) <= need))
+    idx = torch.nonzero(take).squeeze(1)                # ascending
+    order = torch.sort(key[idx], descending=True, stable=True).indices
+    return idx[order]
+
+
+@dataclass(frozen=True)
+class TopK(Contractive):
+    """Greedy sparsification: keep the K = round(q*d) largest-magnitude
+    coordinates.  TopK in B(K/d).
+
+    Exactly K coordinates survive, in ``lax.top_k``'s order with its tie
+    rule (``topk_indices``).  Payload: K values (input dtype) + K indices
+    packed to ceil(log2 d) bits (int32 container).
+    """
+
+    q: float = 0.1
+
+    def encode(self, rand, x):
+        xf = x.reshape(-1)
+        d = xf.numel()
+        idx = topk_indices(xf, _k_of(self.q, d))
+        return ({"values": xf[idx],
+                 "indices": PackedBits(idx.to(torch.int32), _index_bits(d))},
+                {})
+
+    def decode(self, payload, meta, like):
+        out = torch.zeros(_numel(like.shape), dtype=like.dtype,
+                          device=like.device)
+        out[payload["indices"].data.long()] = payload["values"].to(like.dtype)
+        return out.reshape(like.shape)
+
+    def delta(self, d):
+        return _k_of(self.q, d) / d
+
+    @property
+    def stochastic(self):
+        return False
+
+
 def _fused_q8(**kw) -> Compressor:
     # the CUDA-fused blockwise-int8 codec lives with its kernel
     from repro_torch.kernels.q8ring.ops import FusedQ8
@@ -205,10 +349,12 @@ _PORTED = {
     "zero": Zero,
     "int8": Int8Stochastic,
     "q8_block": _fused_q8,
+    "natural": NaturalCompression,
+    "topk": TopK,
 }
-_NOT_PORTED = ("randk", "bernoulli", "natural_dithering", "natural",
-               "terngrad", "topk", "sign", "induced",
-               "induced_topk_randk", "induced_topk_natural")
+_NOT_PORTED = ("randk", "bernoulli", "natural_dithering", "terngrad",
+               "sign", "induced", "induced_topk_randk",
+               "induced_topk_natural")
 
 
 def make_compressor(name: str, **kw) -> Compressor:

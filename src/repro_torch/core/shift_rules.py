@@ -21,7 +21,7 @@ leading ``(W,)`` axis on every leaf.  The phases are the reference's::
 
 ``bits`` is an f32 0-d CPU tensor accumulated leaf by leaf in the
 reference's order, so it equals the reference's f32 counter exactly.
-Rules still to be ported (star, rand_diana, ef21, efbv) raise
+Rules still to be ported (star, rand_diana) raise
 ``NotImplementedError`` from ``make_shift_rule``.
 """
 
@@ -142,6 +142,51 @@ class DianaShift(ShiftRule):
         return g_bar, h, h_bar
 
 
+def _integrate(m, m_bar, h, h_bar, eta: float, nu: float):
+    """The error-feedback update shared by EF21 and EF-BV: ``g_bar =
+    h_bar + nu * m_bar``, then ``h += eta * m`` and ``h_bar += eta *
+    m_bar``, IN PLACE (the reference rebinds them; at full size a second
+    copy of the (W, ...) shifts would not fit).  ``add`` with ``alpha``
+    rounds once, as XLA contracts the reference's ``a + c * b``."""
+    g_bar = {k: torch.add(h_bar[k], mb, alpha=nu) for k, mb in m_bar.items()}
+    for k in h:
+        h[k].add_(m[k], alpha=eta)
+        h_bar[k].add_(m_bar[k], alpha=eta)
+    return g_bar, h, h_bar
+
+
+@dataclass(frozen=True)
+class EF21Shift(ShiftRule):
+    """EF21 error feedback (Richtarik, Sokolov & Fatkhullin, 2021): the
+    wire message is the (contractive) compression of the gradient-shift
+    residual and the shift integrates it::
+
+        c_i = C(grad_i - h_i);  g = mean_i (h_i + c_i);  h_i += c_i
+
+    with the master's aggregate shift tracked as ``h_bar += mean_i c_i``.
+    Only ``apply`` differs from the base rule."""
+
+    def apply(self, wgrads, m, m_bar, h, h_bar, aux):
+        return _integrate(m, m_bar, h, h_bar, 1.0, 1.0)
+
+
+@dataclass(frozen=True)
+class EFBVShift(ShiftRule):
+    """EF-BV (Condat, Li & Richtarik, 2022), EF21's variance-reduced
+    generalization::
+
+        m_i = C(grad_i - h_i);  g = h_bar + nu * m_bar
+        h_i += eta * m_i;       h_bar += eta * m_bar
+
+    ``eta = nu = 1`` is EF21 exactly."""
+
+    eta: float = 1.0
+    nu: float = 1.0
+
+    def apply(self, wgrads, m, m_bar, h, h_bar, aux):
+        return _integrate(m, m_bar, h, h_bar, self.eta, self.nu)
+
+
 #: every rule the reference's registry accepts
 SHIFT_RULES = ("fixed", "dcgd", "star", "diana", "rand_diana", "ef21",
                "efbv")
@@ -152,6 +197,8 @@ def make_shift_rule(name: str, **kw) -> ShiftRule:
         "fixed": FixedShift,
         "dcgd": FixedShift,
         "diana": DianaShift,
+        "ef21": EF21Shift,
+        "efbv": EFBVShift,
     }
     if name in SHIFT_RULES and name not in table:
         raise NotImplementedError(

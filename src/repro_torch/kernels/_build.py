@@ -4,8 +4,10 @@ Each kernel source (``*.cu`` under a ``csrc/`` directory of the package)
 is compiled on first use by ``nvcc`` into a shared library with a plain
 C interface and loaded with ``ctypes`` -- no PyTorch headers, so a build
 takes seconds.  Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17
--O3``, and deliberately no ``--use_fast_math`` (the q8 kernels rely on
-IEEE division and on denormals; the WKV6 kernels on IEEE roundings).
+-O3``, and deliberately no ``--use_fast_math`` or ``-ftz=true`` (the q8
+kernels rely on IEEE division and on denormals; the WKV6 kernels on IEEE
+roundings; the natural and top-k kernels flush subnormals themselves,
+where the reference's arithmetic does).
 
 Libraries land in ``kernels/build/`` next to this file (ignored by git),
 named by a hash of their source, so an edited source is rebuilt and a
@@ -31,6 +33,8 @@ BUILD_DIR = KERNELS_DIR / "build"
 SOURCES: Dict[str, Path] = {
     "q8ring": KERNELS_DIR / "q8ring" / "csrc" / "q8ring.cu",
     "wkv6": KERNELS_DIR / "wkv6" / "csrc" / "wkv6.cu",
+    "natural": KERNELS_DIR / "natural" / "csrc" / "natural.cu",
+    "topk": KERNELS_DIR / "topk" / "csrc" / "topk.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

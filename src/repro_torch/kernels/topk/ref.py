@@ -1,0 +1,67 @@
+"""Plain PyTorch versions of block Top-K sparsification: each
+(block, 128) row block of an (R, 128) array keeps its largest-magnitude
+entries and zeroes the rest.
+
+Two forms, as in the reference:
+
+* ``block_topk_bisect_ref`` is the function the TPU kernel computes
+  (``repro/kernels/topk/kernel.py:_block_topk_kernel``): the threshold
+  ``lo`` comes from 32 bisection steps on ``count(|x| >= mid) >= k``,
+  from ``lo = 0``, ``hi = max|x|``, with ``mid = 0.5 * (lo + hi)`` in
+  f32, and the block keeps ``|x| >= lo`` -- at least k entries, more on
+  ties.  This is what a CPU tensor runs through and what the CUDA kernel
+  is held against, bit for bit.  As in the reference, ``max|x|``
+  propagates NaN: a block holding a NaN never raises ``lo`` above 0, so
+  it keeps every finite entry and writes 0 at the NaN.  Subnormal
+  magnitudes and midpoints count as zero, as XLA on the CPU flushes them
+  when it runs the reference.
+* ``block_topk_ref`` is the reference's oracle
+  (``repro/kernels/topk/ref.py``): the exact k-th magnitude per block,
+  keeping ``|x| >= kth``.  On data without ties across the threshold the
+  two agree.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.natural.ref import ftz
+
+LANE = 128
+DEFAULT_BLOCK_ROWS = 64     # 64 * 128 = 8192 elements per block
+BISECT_ITERS = 32
+
+
+def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
+    r, lane = x.shape
+    if lane != LANE or block < 1 or r % block:
+        raise ValueError(f"expected (R, {LANE}) with R % block == 0; got "
+                         f"({r}, {lane}) and block {block}")
+    return x.reshape(r // block, block * LANE)
+
+
+def block_topk_bisect_ref(x: torch.Tensor, *, k: int,
+                          block: int) -> torch.Tensor:
+    """x: (R, 128) f32 or bf16; keeps ``|x| >= lo`` per (block, 128) row
+    block, ``lo`` from the bisection.  Output in ``x.dtype``."""
+    xb = _blocks(x, block).to(torch.float32)
+    a = ftz(xb.abs())
+    hi = a.amax(dim=1)                      # propagates NaN, as jnp.max
+    lo = torch.zeros_like(hi)
+    for _ in range(BISECT_ITERS):
+        mid = ftz((lo + hi) * 0.5)
+        raise_lo = (a >= mid[:, None]).sum(dim=1) >= k
+        lo = torch.where(raise_lo, mid, lo)
+        hi = torch.where(raise_lo, hi, mid)
+    out = torch.where(a >= lo[:, None], xb, torch.zeros_like(xb))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def block_topk_ref(x: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
+    """The exact form: keep ``|x| >= kth``, ``kth`` the k-th largest
+    magnitude of each (block, 128) row block."""
+    xb = _blocks(x, block)
+    a = xb.to(torch.float32).abs()
+    kth = torch.topk(a, k, dim=1).values[:, -1]
+    out = torch.where(a >= kth[:, None], xb, torch.zeros_like(xb))
+    return out.reshape(x.shape)

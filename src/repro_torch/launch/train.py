@@ -17,8 +17,9 @@ that do it.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
-          [--compressor q8_block] [--shift-rule diana] \
-          [--comm-mode dense|q8_ring|q8_ring_fused] \
+          [--compressor natural|topk|q8_block|...] [--shift-rule diana] \
+          [--comm-mode dense|q8_ring|q8_ring_fused|ef21|efbv] \
+          [--efbv-eta ETA] [--efbv-nu NU] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
 
 The worker count is the size of the host mesh's ``data`` axis, as in the
@@ -119,7 +120,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
     return train_step
 
 
-def main(argv: Optional[list] = None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags: the reference's for what the port runs, with the
+    reference's defaults."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=20)
@@ -127,18 +130,28 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke variant of the arch")
-    # the reference's default codec is 'natural', not ported yet; the
-    # port's default is the codec it runs through its CUDA kernels
-    ap.add_argument("--compressor", default="q8_block")
+    ap.add_argument("--compressor", default="natural")
     ap.add_argument("--shift-rule", "--shift_rule", dest="shift_rule",
                     default="diana", choices=list(SHIFT_RULES))
     ap.add_argument("--comm-mode", "--comm_mode", dest="comm_mode",
-                    default="dense", choices=list(COMM_MODES))
+                    default="dense", choices=list(COMM_MODES),
+                    help="channel aggregation format; ef21/efbv select the "
+                         "error-feedback modes (implying their rule)")
+    ap.add_argument("--efbv-eta", "--efbv_eta", dest="efbv_eta",
+                    type=float, default=1.0,
+                    help="EF-BV shift integration rate (1.0 = EF21)")
+    ap.add_argument("--efbv-nu", "--efbv_nu", dest="efbv_nu",
+                    type=float, default=1.0,
+                    help="EF-BV estimator mixing")
     ap.add_argument("--no-compression", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv: Optional[list] = None):
+    args = build_parser().parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
@@ -148,6 +161,8 @@ def main(argv: Optional[list] = None):
         compressor=args.compressor,
         shift_rule=args.shift_rule,
         comm_mode=args.comm_mode,
+        efbv_eta=args.efbv_eta,
+        efbv_nu=args.efbv_nu,
     )
     mesh = make_host_mesh(device)
     w = n_workers(mesh)

@@ -281,7 +281,7 @@ def test_cli_runs_on_cpu(flags, capsys):
                              "--batch", "4", "--seq", "16", "--device", "cpu",
                              *flags])
     out = capsys.readouterr().out
-    assert "step    1" in out and "compressor=q8_block" in out
+    assert "step    1" in out and "compressor=natural" in out
     assert state.step == 2
     assert (state.bits.item() > 0) == ("--no-compression" not in flags)
     assert (state.h is None) == bool(flags)
