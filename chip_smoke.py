@@ -18,9 +18,12 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    of 20) at the largest qwen3-0.6b layout (the embedding's).  Hold the
    WKV6 forward and backward kernels against their plain versions
    within WKV_TOL (not bitwise: the sums run in another order) at the
-   RWKV-6 path's shape, at a long T that no chunk divides, at the other
-   head widths, and forward with bf16 inputs; time them at the path's
-   shape.
+   RWKV-6 path's shape, at a long T that no chunk divides, at T = 1, at
+   one row and at 13, at every pair of head widths, with extreme decays,
+   and forward with bf16 inputs; each twice, bitwise equal from call to
+   call, and through views that start off a 16-byte boundary, bitwise
+   equal to fresh tensors; print their registers, shared memory and spills from the
+   build's ptxas report; time them at the path's shape.
 4. Cross-check, for qwen3-0.6b in the ``dense`` and the
    ``q8_ring_fused`` mode and for rwkv6-3b in ``dense``: one step of
    the smoke config on the card (kernels) and on the CPU (plain
@@ -63,6 +66,18 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --wkv6-against OTHER.cu
+
+runs only the card's phase and a comparison of two versions of the WKV6
+kernels: ``OTHER.cu``, another version of
+``src/repro_torch/kernels/wkv6/csrc/wkv6.cu`` with the same C interface
+(an earlier commit's, written out with ``git show``), and the
+checkout's.  At the RWKV-6 path's shape, at a quarter of its rows and at
+half its K, both builds are held against the plain versions within
+WKV_TOL, then timed in turns (other, this, this, other) with
+``time_ms``; one JSON line a shape, then the card's name and power
+limit.
 """
 
 import json
@@ -444,25 +459,112 @@ def _wkv_compare(what, got, ref, *, summed_over_t=False):
     return d.max().item(), worst
 
 
+def extreme_decays(w):
+    """``w`` with its first five rows' decays set to the recurrence's
+    extremes: all 0, all 1e-30 (a product far below 1 but normal), all 1 -
+    2^-24 (the largest f32 below 1), all 1 (no decay), and the four mixed
+    along K in one row."""
+    values = torch.tensor([0.0, 1e-30, 1.0 - 2.0 ** -24, 1.0],
+                          device=w.device)
+    w = w.clone()
+    for row, x in enumerate(values):
+        w[row] = x
+    w[4] = values.repeat(w.shape[-1] // 4)
+    return w
+
+
+def ptxas_report(log_text):
+    """``[(kernel, registers, spill stores, spill loads, smem bytes)]`` for
+    every entry function that ``nvcc -Xptxas=-v`` reported in
+    ``log_text``, its name shortened to ``name<K, V[, type]>``."""
+    import re
+
+    out, name, spills = [], None, (None, None)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            head = raw.split("EEv")[0]           # the template arguments
+            base = re.search(r"\d+(wkv6_\w+?_kernel)I", head)
+            args = re.findall(r"Li(\d+)E", head)
+            kind = ("bf16" if "bfloat16" in head
+                    else "f32" if "wkv6_fwd" in head else "")
+            name = (f"{base.group(1)}<{', '.join(args + ([kind] if kind else []))}>"
+                    if base else raw)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spills,
+                        int(m.group(2) or 0)))
+            name, spills = None, (None, None)
+    return out
+
+
+def wkv6_bwd_smem_bytes(dk, dv):
+    """Dynamic shared memory of a backward block, as ``bwd_smem_floats``
+    in wkv6.cu lays it out: two stages of inputs, the row and the column
+    partials of a checkpoint chunk, two scalars a step and ``u``."""
+    c = 8                                       # kCkptEvery
+    col_pitch = (dv + 31) // 32 * 32 + 16
+    floats = (2 * c * (3 * dk + 2 * dv) + c * 3 * (dv // 4) * (dk + 8)
+              + c * (dk // 2) * col_pitch + 2 * c + dk)
+    return 4 * floats
+
+
+def misaligned(x):
+    """A copy of ``x`` in a view whose data starts one element past a
+    16-byte boundary."""
+    view = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return view.view(x.shape).copy_(x)
+
+
 def phase_wkv6_kernels(cfg):
     """The WKV6 forward and backward kernels against their plain versions
     on the card: at the main path's shape (one worker's batch times the
-    heads, SEQ steps, f32), at a long T that no chunk divides (with a
-    final-state gradient), at the other built head widths (K != V), and
-    forward with bf16 inputs; then both timed at the path's shape."""
+    heads, SEQ steps, f32), at a long T that no chunk divides, at T = 1,
+    at one row and at a row count no block split divides, at every pair
+    of built head widths (K, V), with and without a final-state gradient,
+    with extreme decays, and forward with bf16 inputs; each kernel run
+    twice on the same inputs must give the same bits, and views that start
+    off a 16-byte boundary the same bits as fresh tensors.  Then both
+    timed at the path's shape."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.wkv6 import kernel as WK
     from repro_torch.kernels.wkv6.ref import (wkv6_bwd_ref, wkv6_fwd_ref,
                                               wkv6_ref)
 
+    if "wkv6" in _build.BUILD_LOG:
+        for name, regs, st, ld, smem in ptxas_report(_build.BUILD_LOG["wkv6"]):
+            log(f"wkv6 ptxas: {name}: {regs} registers, {smem} bytes static "
+                f"smem, spill stores {st} B, spill loads {ld} B")
+    else:
+        log("wkv6 ptxas: the library was built before this run; no report")
+    log("wkv6 backward dynamic shared memory (bytes a block): " + ", ".join(
+        f"<{dk}, {dv}> {wkv6_bwd_smem_bytes(dk, dv)}"
+        for dk in WK.DIMS for dv in WK.DIMS))
     gen = torch.Generator(device="cuda").manual_seed(2)
     hd = cfg.rwkv_head_dim
     bh = BATCH // W * (cfg.d_model // hd)
-    cases = [(bh, SEQ, hd, hd, False), (bh, WKV_LONG_T, hd, hd, True),
-             (6, 77, 32, 64, True), (3, 50, 16, 16, False)]
+    # (rows, T, K, V, final-state gradient, extreme decays)
+    cases = [(bh, SEQ, hd, hd, False, False), (bh, WKV_LONG_T, hd, hd, True,
+                                                False),
+             (bh, SEQ, hd, hd, True, True), (1, SEQ, hd, hd, True, False),
+             (13, 37, hd, hd, False, True), (5, 1, hd, hd, True, False),
+             (2, 1, 16, 32, False, False)]
+    cases += [(3 + n, 29 + 6 * n, dk, dv, n % 2 == 1, n == 4)
+              for n, (dk, dv) in enumerate(
+                  (dk, dv) for dk in WK.DIMS for dv in WK.DIMS)]
     err = {"wkv6_forward": 0.0, "wkv6_backward": 0.0}
     worst = dict(err)
-    for n_bh, t, dk, dv, with_ds in cases:
+    for n_bh, t, dk, dv, with_ds, extreme in cases:
         r, k, v, w, u = wkv6_inputs(gen, n_bh, t, dk, dv)
+        if extreme:
+            w = extreme_decays(w)
         y, s, ckpt = WK.wkv6_forward(r, k, v, w, u, checkpoints=True)
         yr, sr, cr = wkv6_fwd_ref(r, k, v, w, u, checkpoints=True)
         dy = torch.randn((n_bh, t, dv), generator=gen, device="cuda")
@@ -470,8 +572,16 @@ def phase_wkv6_kernels(cfg):
               if with_ds else None)
         grads = WK.wkv6_backward(r, k, v, w, u, ckpt, dy, ds)
         grads_ref = wkv6_bwd_ref(r, k, v, w, u, dy, ds)
+        again = (*WK.wkv6_forward(r, k, v, w, u, checkpoints=True),
+                 *WK.wkv6_backward(r, k, v, w, u, ckpt, dy, ds))
         torch.cuda.synchronize()
-        shape = f"(BH={n_bh}, T={t}, K={dk}, V={dv})"
+        shape = (f"(BH={n_bh}, T={t}, K={dk}, V={dv}"
+                 f"{', extreme decays' if extreme else ''})")
+        for name, a, b in zip(("y", "s_final", "ckpt", "dr", "dk", "dv",
+                               "dw", "du"), (y, s, ckpt, *grads), again):
+            check(bool(same_bits(a, b).all()),
+                  f"wkv6 {name} at {shape}: two calls on the same inputs "
+                  f"gave different bits")
         for name, kind, got, ref in [
                 ("y", "wkv6_forward", y, yr),
                 ("s_final", "wkv6_forward", s, sr),
@@ -494,17 +604,31 @@ def phase_wkv6_kernels(cfg):
         log(f"wkv6 kernels: within {WKV_TOL} (1 + |plain|; du: |plain| + "
             f"max |plain|) of plain at {shape}, f32 forward + backward"
             f"{' with a final-state gradient' if with_ds else ''}, bf16 "
-            f"forward")
+            f"forward; bitwise equal over two calls")
     log(f"wkv6 kernels: largest |kernel - plain| forward "
         f"{err['wkv6_forward']:.3e} ({worst['wkv6_forward']:.3f} of the "
         f"tolerance), backward {err['wkv6_backward']:.3e} "
         f"({worst['wkv6_backward']:.3f} of it)")
 
-    # timing at the path's shape: the forward as training runs it (saving
-    # its checkpoints), the backward from them
+    # views that start off a 16-byte boundary: the wrappers copy them and
+    # launch the kernels as usual, to the same bits
     r, k, v, w, u = wkv6_inputs(gen, bh, SEQ, hd, hd)
     dy = torch.randn((bh, SEQ, hd), generator=gen, device="cuda")
-    _, _, ckpt = WK.wkv6_forward(r, k, v, w, u, checkpoints=True)
+    y, s, ckpt = WK.wkv6_forward(r, k, v, w, u, checkpoints=True)
+    grads = WK.wkv6_backward(r, k, v, w, u, ckpt, dy)
+    mr, mk, mv, mw, mckpt, mdy = map(misaligned, (r, k, v, w, ckpt, dy))
+    got = (*WK.wkv6_forward(mr, mk, mv, mw, u, checkpoints=True),
+           *WK.wkv6_backward(mr, mk, mv, mw, u, mckpt, mdy))
+    for name, a, b in zip(("y", "s_final", "ckpt", "dr", "dk", "dv", "dw",
+                           "du"), (y, s, ckpt, *grads), got):
+        check(bool(same_bits(a, b).all()),
+              f"wkv6 {name}: misaligned views gave other bits")
+    log("wkv6 kernels: views 4 bytes off a 16-byte boundary give the same "
+        "bits as fresh tensors")
+    del y, s, grads, mr, mk, mv, mw, mckpt, mdy, got
+
+    # timing at the path's shape: the forward as training runs it (saving
+    # its checkpoints), the backward from them
     t = {
         "fwd": time_ms(lambda: WK.wkv6_forward(r, k, v, w, u,
                                                checkpoints=True)),
@@ -545,6 +669,47 @@ def phase_wkv6_kernels(cfg):
          "plain_ms": t["bwd_plain"], "bound_ms": bb, "bound_by": bby,
          "library_ms": None},
     ]
+
+
+def wkv6_against(other):
+    """The WKV6 kernels built from ``other`` against the checkout's: at
+    the RWKV-6 path's shape, at a quarter of its rows and at half its K,
+    both held against the plain versions, then timed in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6 import kernel as WK
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_fwd_ref
+
+    cfg = get_config("rwkv6-3b")
+    hd = cfg.rwkv_head_dim
+    bh = BATCH // W * (cfg.d_model // hd)
+    builds = {"other": str(other), "this": None}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for n_bh, dk in ((bh, hd), (bh // 4, hd), (bh, hd // 2)):
+        shape = f"(BH={n_bh}, T={SEQ}, K={dk}, V={hd})"
+        r, k, v, w, u = wkv6_inputs(gen, n_bh, SEQ, dk, hd)
+        dy = torch.randn((n_bh, SEQ, hd), generator=gen, device="cuda")
+        ref = (*wkv6_fwd_ref(r, k, v, w, u, checkpoints=True),
+               *wkv6_bwd_ref(r, k, v, w, u, dy))
+        ckpt = {}
+        for label, src in builds.items():
+            y, s, ckpt[label] = WK.wkv6_forward(r, k, v, w, u,
+                                                checkpoints=True, source=src)
+            got = (y, s, ckpt[label],
+                   *WK.wkv6_backward(r, k, v, w, u, ckpt[label], dy,
+                                     source=src))
+            for name, a, b in zip(("y", "s_final", "ckpt", "dr", "dk", "dv",
+                                   "dw", "du"), got, ref):
+                _wkv_compare(f"{label} build's {name} at {shape}", a, b,
+                             summed_over_t=name == "du")
+        ms = {label: {"forward": [], "backward": []} for label in builds}
+        for label in ("other", "this", "this", "other"):
+            src = builds[label]
+            ms[label]["forward"].append(time_ms(lambda: WK.wkv6_forward(
+                r, k, v, w, u, checkpoints=True, source=src)))
+            ms[label]["backward"].append(time_ms(lambda: WK.wkv6_backward(
+                r, k, v, w, u, ckpt[label], dy, source=src)))
+        log(json.dumps({"shape": {"bh": n_bh, "t": SEQ, "k": dk, "v": hd},
+                        "other": str(other), "ms": ms}))
 
 
 def natural_edges():
@@ -1130,8 +1295,19 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
     return g0
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wkv6-against", type=Path, metavar="OTHER.cu",
+                    help="only time another version of wkv6.cu against "
+                         "the checkout's")
+    args = ap.parse_args(argv)
     card = phase_card()
+    if args.wkv6_against is not None:
+        wkv6_against(args.wkv6_against)
+        log(card)
+        return
     from repro_torch.configs import get_config
 
     qwen = get_config("qwen3-0.6b").with_(dtype="float32")

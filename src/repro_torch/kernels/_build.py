@@ -57,31 +57,36 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+def _source(name: str, source=None) -> Path:
+    return SOURCES[name] if source is None else Path(source)
+
+
+def _lib_path(name: str, source=None) -> Path:
+    digest = hashlib.sha256(_source(name, source).read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, source=None):
     """Start ``nvcc`` for one library; returns ``(process, tmp, out)``, or
     ``None`` when the library is already built."""
-    out = _lib_path(name)
+    out = _lib_path(name, source)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name, source))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started, source=None) -> None:
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-    BUILD_LOG[name] = log
+        raise RuntimeError(f"nvcc failed for {_source(name, source)}:\n{log}")
+    if source is None:
+        BUILD_LOG[name] = log
     os.replace(tmp, out)
 
 
@@ -95,14 +100,16 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> None:
                 _finish(n, s)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, building it first if needed."""
+def load(name: str, source=None) -> ctypes.CDLL:
+    """The loaded library ``name``, building it first if needed; built
+    from ``source`` (another version of its ``.cu`` file, with the same C
+    interface) instead of the package's when that is given."""
+    key = name if source is None else f"{name}:{Path(source).resolve()}"
     with _LOCK:
-        lib = _LOADED.get(name)
-    if lib is not None:
+        lib = _LOADED.get(key)
+        if lib is None:
+            started = _start(name, source)
+            if started is not None:
+                _finish(name, started, source)
+            lib = _LOADED[key] = ctypes.CDLL(str(_lib_path(name, source)))
         return lib
-    build([name])
-    with _LOCK:
-        if name not in _LOADED:
-            _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
-        return _LOADED[name]

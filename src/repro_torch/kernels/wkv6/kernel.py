@@ -34,8 +34,10 @@ _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("wkv6")
+def _lib(source=None) -> ctypes.CDLL:
+    """The built library: of ``csrc/wkv6.cu``, or of ``source``, another
+    version of it with the same C interface."""
+    lib = _build.load("wkv6", source)
     if not getattr(lib, "_wkv6_typed", False):
         lib.wkv6_forward.argtypes = [_VP] * 8 + [_INT] * 5 + [_VP]
         lib.wkv6_forward.restype = _INT
@@ -65,6 +67,13 @@ def _check(name, x, dtypes, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _aligned(x):
+    """``x``, or a copy of it on its device where its data does not start
+    on a 16-byte boundary (a view such as ``x[1:]``): the kernels read
+    their sequences and checkpoints 16 bytes at a time."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _shapes(r, v):
     if r.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, T, K) and (BH, T, V); got "
@@ -85,12 +94,15 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
 
 
-def wkv6_forward(r, k, v, w, u, *, checkpoints: bool = False):
+def wkv6_forward(r, k, v, w, u, *, checkpoints: bool = False,
+                 source=None):
     """The recurrence from a zero state.  r, k, w: (BH, T, K) and v: (BH,
     T, V), all f32 or all bf16; u: (BH, K) f32.  Returns ``(y (BH, T, V)
     f32, s_final (BH, K, V) f32, ckpt)``, where ``ckpt`` holds the states
     the backward starts from, (BH, n_ckpt(T), K, V) f32, when
-    ``checkpoints`` is set, else ``None``."""
+    ``checkpoints`` is set, else ``None``.  ``source``: launch the build
+    of another version of ``csrc/wkv6.cu`` (same C interface) instead, to
+    time one version against another."""
     bh, t, dk, dv = _shapes(r, v)
     dev = r.device
     dtypes = (torch.float32, torch.bfloat16)
@@ -101,11 +113,12 @@ def wkv6_forward(r, k, v, w, u, *, checkpoints: bool = False):
     _check("u", u, (torch.float32,), (bh, dk), dev)
     if dev.type == "cpu":
         return wkv6_fwd_ref(r, k, v, w, u, checkpoints=checkpoints)
+    r, k, v, w = map(_aligned, (r, k, v, w))
     y = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
     s = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
     ckpt = (torch.empty((bh, n_ckpt(t), dk, dv), dtype=torch.float32,
                         device=dev) if checkpoints else None)
-    lib = _lib()
+    lib = _lib(source)
     with torch.cuda.device(dev):
         err = lib.wkv6_forward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -119,12 +132,13 @@ def wkv6_forward(r, k, v, w, u, *, checkpoints: bool = False):
 
 
 def wkv6_backward(r, k, v, w, u, ckpt, dy,
-                  ds_fin: Optional[torch.Tensor] = None):
+                  ds_fin: Optional[torch.Tensor] = None, *, source=None):
     """Gradients of the recurrence (``ref.wkv6_bwd_ref``), all f32: the
     forward's inputs, its ``ckpt``, the output gradient ``dy`` (BH, T, V)
     and the final state's ``ds_fin`` (BH, K, V) or ``None`` (zero).
     Returns ``(dr, dk, dv, dw, du)``; ``du`` is (BH, K), one row per
-    (batch, head): the caller sums it over the batch."""
+    (batch, head): the caller sums it over the batch.  ``source`` as for
+    ``wkv6_forward``."""
     bh, t, dk, dv = _shapes(r, v)
     dev = r.device
     f32 = (torch.float32,)
@@ -138,8 +152,9 @@ def wkv6_backward(r, k, v, w, u, ckpt, dy,
         _check("ds_fin", ds_fin, f32, (bh, dk, dv), dev)
     if dev.type == "cpu":
         return wkv6_bwd_ref(r, k, v, w, u, dy, ds_fin)
+    r, k, v, w, ckpt, dy = map(_aligned, (r, k, v, w, ckpt, dy))
     grads = [torch.empty_like(x) for x in (r, k, v, w, u)]
-    lib = _lib()
+    lib = _lib(source)
     with torch.cuda.device(dev):
         err = lib.wkv6_backward(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

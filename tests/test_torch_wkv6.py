@@ -258,3 +258,159 @@ def test_autograd_function_matches_plain_autograd(with_ds):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=GRAD_RTOL,
                                    atol=GRAD_RTOL * ref.abs().max().item(),
                                    err_msg=f"d{name}")
+
+
+def _extreme(w):
+    """``w`` (BH >= 5, T, K) with the decays the kernels are held to at
+    their extremes on the card: rows of all 0, all 1e-30, all 1 - 2^-24
+    (the largest f32 below 1), all 1, and the four mixed along K."""
+    w = w.copy()
+    values = np.array([0.0, 1e-30, 1.0 - 2.0 ** -24, 1.0], np.float32)
+    w[:4] = values[:, None, None]
+    w[4] = np.tile(values, w.shape[-1] // 4)
+    return w
+
+
+def test_plain_versions_at_extreme_decays():
+    """The port's plain recurrence against the reference's where the
+    decays are 0, 1e-30, 1 - 2^-24 and 1, and its explicit reverse
+    recurrence against autograd through it there, with a final-state
+    gradient."""
+    r, k, v, w, u = _bh_inputs(10, 6, 40, 1, 32, 16)
+    w = _extreme(w)
+    yj, sj = jax_wkv6_ref(*_jax((r, k, v, w)), u)
+    yt, st = wkv6_ref(*_torch((r, k, v, w, u)))
+    _close(yt, yj, TOL["float32"])
+    _close(st, sj, TOL["float32"])
+    rng = np.random.default_rng(11)
+    c = torch.from_numpy(rng.standard_normal(yt.shape).astype(np.float32))
+    d = torch.from_numpy(rng.standard_normal(st.shape).astype(np.float32))
+    leaves = [x.requires_grad_(True) for x in _torch((r, k, v, w, u))]
+    y, s = wkv6_ref(*leaves)
+    ((y * c).sum() + (s * d).sum()).backward()
+    explicit = wkv6_bwd_ref(*_torch((r, k, v, w, u)), c, d)
+    for name, x, got in zip("rkvwu", leaves, explicit):
+        ref = x.grad.numpy()
+        np.testing.assert_allclose(got.numpy(), ref, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(ref).max(),
+                                   err_msg=f"d{name}")
+
+
+def test_misaligned_views_are_copied_for_the_kernels():
+    """The kernels read their sequences 16 bytes at a time; the wrappers
+    hand them a copy of a tensor whose data does not start 16-byte aligned
+    and the tensor itself otherwise (the choice is on the pointer, so it
+    is exercised here on CPU views)."""
+    base = torch.arange(68, dtype=torch.float32)
+    aligned = base[4:]
+    assert K._aligned(aligned) is aligned
+    view = base[1:]
+    copy = K._aligned(view)
+    assert copy.data_ptr() % 16 == 0 and copy.data_ptr() != view.data_ptr()
+    assert torch.equal(copy, view)
+
+
+def _misaligned(x):
+    view = torch.empty(x.numel() + 1, dtype=x.dtype)[1:]
+    return view.view(x.shape).copy_(x)
+
+
+def test_autograd_function_takes_misaligned_views():
+    """``_WKV6`` through views that start off a 16-byte boundary gives what
+    it gives through fresh tensors, values and gradients."""
+    from repro_torch.kernels.wkv6.ops import _WKV6
+
+    r, k, v, w, u = _torch(_bh_inputs(13, 2, 19, 1, 16, 32))
+    rng = np.random.default_rng(14)
+    c = torch.from_numpy(rng.standard_normal((2, 19, 32)).astype(np.float32))
+    out = {}
+    for label, prep in (("fresh", torch.clone), ("view", _misaligned)):
+        leaves = [prep(x).requires_grad_(True) for x in (r, k, v, w, u)]
+        if label == "view":
+            assert all(x.data_ptr() % 16 for x in leaves[:4])
+        y, s = _WKV6.apply(*leaves)
+        ((y * c).sum() + s.sum()).backward()
+        out[label] = [y.detach(), s.detach()] + [x.grad for x in leaves]
+    for a, b in zip(out["fresh"], out["view"]):
+        assert torch.equal(a, b)
+
+
+def test_build_names_a_library_by_its_source():
+    """Another version of a kernel source is built into a library of its
+    own, named by its contents (so an unchanged copy reuses the build)."""
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    src = _build.SOURCES["wkv6"]
+    with tempfile.TemporaryDirectory() as d:
+        same, other = Path(d) / "same.cu", Path(d) / "other.cu"
+        same.write_bytes(src.read_bytes())
+        other.write_bytes(src.read_bytes() + b"\n// another version\n")
+        assert _build._lib_path("wkv6", same) == _build._lib_path("wkv6")
+        assert _build._lib_path("wkv6", other) != _build._lib_path("wkv6")
+        assert _build._lib_path("wkv6", other).parent == _build.BUILD_DIR
+
+
+def test_chip_smoke_wkv6_against_needs_a_card(monkeypatch, capsys):
+    """The old-against-new timing mode fails without CUDA rather than
+    timing anything on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_:
+        _chip_smoke().main(["--wkv6-against", "old.cu"])
+    assert exit_.value.code == 1
+    assert "needs a GPU" in capsys.readouterr().err
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_extreme_decays_match_the_tests():
+    """``chip_smoke.py`` holds the kernels to the same extreme decays as
+    ``_extreme`` here."""
+    w = np.random.default_rng(12).random((7, 3, 16)).astype(np.float32)
+    got = _chip_smoke().extreme_decays(torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, _extreme(w))
+
+
+def test_chip_smoke_backward_shared_memory():
+    """The backward's shared memory as ``chip_smoke.py`` prints it: the
+    layout of ``bwd_smem_floats`` in wkv6.cu, within the 227 KB a block may
+    take at every (K, V)."""
+    smoke = _chip_smoke()
+    assert smoke.wkv6_bwd_smem_bytes(64, 64) == 213312
+    assert smoke.wkv6_bwd_smem_bytes(16, 16) == 26752
+    assert max(smoke.wkv6_bwd_smem_bytes(a, b) for a in K.DIMS
+               for b in K.DIMS) <= 232448
+
+
+def test_chip_smoke_reads_the_ptxas_report():
+    """Registers, spills and shared memory per kernel from an ``nvcc
+    -Xptxas=-v`` log, with the names shortened."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115wkv6_"
+        "bwd_kernelILi64ELi64EEEvPKfS2_S2_PfS3_i' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_115wkv6_"
+        "bwd_kernelILi64ELi64EEEvPKfS2_S2_PfS3_i",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 121 registers, used 1 barriers, 480 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115wkv6_"
+        "fwd_kernelILi32ELi16E13__nv_bfloat16EEvPKT1_S5_PKfPfS8_i' for "
+        "'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 29696 bytes "
+        "smem, 424 bytes cmem[0]",
+    ])
+    assert _chip_smoke().ptxas_report(log) == [
+        ("wkv6_bwd_kernel<64, 64>", 121, 0, 0, 0),
+        ("wkv6_fwd_kernel<32, 16, bf16>", 72, 4, 4, 29696)]
