@@ -50,7 +50,10 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    qwen3-0.6b leaf layout their wrappers give (f32) and on an edge set
    (zeros, subnormals, NaN, infinities, powers of two and the floats just
    below them, bf16; for top-k also ties, a NaN in a block, k = 1, k = the
-   whole block, a padded last block); both timed at the embedding leaf.
+   whole block, a padded last block); both timed at the embedding leaf,
+   and beside top-k its selection alone (``torch.topk`` of the
+   magnitudes, a row a block: not the function); the top-k kernel's
+   registers, shared memory and spills from ptxas.
    Cross-checks as in 4 for DIANA + ``natural`` and for ``ef21`` +
    ``topk``.
 9. Two more full-size qwen3-0.6b paths, 3 steps each with the checks of
@@ -78,6 +81,17 @@ half its K, both builds are held against the plain versions within
 WKV_TOL, then timed in turns (other, this, this, other) with
 ``time_ms``; one JSON line a shape, then the card's name and power
 limit.
+
+    python3 chip_smoke.py --topk-against OTHER.cu [MORE.cu ...]
+
+does the same for the top-k kernel: each ``OTHER.cu`` another version
+of ``src/repro_torch/kernels/topk/csrc/topk.cu``; every build held
+bitwise against the plain version (the embedding leaf, a 28-row block
+layout, the edge set in f32 and bf16), then timed in turns (the others,
+the checkout's twice, the others in reverse) at the embedding leaf
+(1,215,488 x 128 f32, blocks of 64 rows, k = 819) and at 28-row blocks
+(k = 358), beside ``clone()`` of the same tensor (a plain device copy
+of the same bytes).
 """
 
 import json
@@ -104,6 +118,7 @@ WKV_LONG_T = 1003           # divided by neither the 8-step checkpoint chunk
                             # nor the forward's 16-step stage
 TOPK_Q = 0.1                # keep fraction of the top-k codec and wrapper
 TINY = 2.0 ** -126          # smallest normal f32
+TOPK_OPS = 18               # block_topk_2d's integer operations an element
 
 
 def log(msg):
@@ -485,10 +500,12 @@ def ptxas_report(log_text):
         if m:
             raw = m.group(1)
             head = raw.split("EEv")[0]           # the template arguments
-            base = re.search(r"\d+(wkv6_\w+?_kernel)I", head)
+            base = re.search(r"\d+((?:wkv6_\w+?|block_topk)_kernel)I",
+                             head)
             args = re.findall(r"Li(\d+)E", head)
-            kind = ("bf16" if "bfloat16" in head
-                    else "f32" if "wkv6_fwd" in head else "")
+            kind = ("bf16" if "bfloat16" in head or "BF16" in head
+                    else "f32" if "wkv6_fwd" in head or "F32" in head
+                    else "")
             name = (f"{base.group(1)}<{', '.join(args + ([kind] if kind else []))}>"
                     if base else raw)
             continue
@@ -712,6 +729,61 @@ def wkv6_against(other):
                         "other": str(other), "ms": ms}))
 
 
+def topk_against(others):
+    """The top-k kernel built from each of ``others`` against the
+    checkout's: all held bitwise against the plain version (the embedding
+    leaf, a 28-row block layout, the edge set, bf16), then timed in turns
+    (others, this, this, others reversed) at the embedding leaf and at
+    the 28-row layout, beside a plain device copy of the same bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.topk.kernel import block_topk_2d
+    from repro_torch.kernels.topk.ops import topk_layout
+    from repro_torch.kernels.topk.ref import block_topk_bisect_ref
+    from repro_torch.models.model import param_specs
+
+    cfg = get_config("qwen3-0.6b")
+    block, rows, k = max((topk_layout(math.prod(shape), TOPK_Q)
+                          for _, shape, _ in param_specs(cfg)),
+                         key=lambda t: t[1])
+    block28, k28 = 28, topk_layout(28 * 128, TOPK_Q)[2]
+    rows28 = rows // block28 * block28
+    builds = {str(o): str(o) for o in others}
+    builds["this"] = None
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((rows, 128), generator=gen, device="cuda") * 1e-3
+    x28 = x[:rows28]
+    cases = [("embedding leaf", x, k, block), ("28-row", x28, k28, block28),
+             ("bf16", x[:4096].bfloat16(), k, block)]
+    cases += [(f"{name} block {b} k {kk}", t, kk, b)
+              for name, t, kk, b in topk_edges(gen)]
+    cases += [(f"bf16 {name} block {b} k {kk}", t.bfloat16(), kk, b)
+              for name, t, kk, b in topk_edges(gen)]
+    for what, t, kk, b in cases:
+        ref = block_topk_bisect_ref(t, k=kk, block=b)
+        for label, src in builds.items():
+            out = block_topk_2d(t, k=kk, block_rows=b, source=src)
+            torch.cuda.synchronize()
+            check(bool(same_bits(out, ref).all()),
+                  f"{label} build of block_topk_2d differs from its plain "
+                  f"version: {what}")
+        del ref
+    log(f"topk builds: both bitwise equal to plain on {len(cases)} cases")
+    for what, t, kk, b in (("embedding leaf", x, k, block),
+                           ("28-row", x28, k28, block28)):
+        ms = {label: [] for label in builds}
+        order = [str(o) for o in others]
+        for label in order + ["this", "this"] + order[::-1]:
+            src = builds[label]
+            ms[label].append(time_ms(lambda: block_topk_2d(
+                t, k=kk, block_rows=b, source=src)))
+        log(json.dumps({"shape": {"rows": t.shape[0], "block_rows": b,
+                                  "k": kk, "dtype": "float32"},
+                        "what": what, "ms": ms,
+                        "copy_ms": time_ms(lambda: t.clone()),
+                        "bound_ms": bound_ms(8 * t.numel(),
+                                             TOPK_OPS * t.numel())[0]}))
+
+
 def natural_edges():
     """Zeros, +-subnormals, NaN, +-inf and normal values against each
     other, and 2^e and one and two ulps below it for every exponent of a
@@ -770,6 +842,14 @@ def phase_natural_topk_kernels(cfg):
     from repro_torch.kernels.topk.ref import block_topk_bisect_ref
     from repro_torch.models.model import param_specs
 
+    from repro_torch.kernels import _build
+
+    if "topk" in _build.BUILD_LOG:
+        for name, regs, st, ld, smem in ptxas_report(_build.BUILD_LOG["topk"]):
+            log(f"topk ptxas: {name}: {regs} registers, {smem} bytes static "
+                f"smem, spill stores {st} B, spill loads {ld} B")
+    else:
+        log("topk ptxas: the library was built before this run; no report")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     err = {"shifted_natural_2d": 0.0, "block_topk_2d": 0.0}
@@ -850,19 +930,26 @@ def phase_natural_topk_kernels(cfg):
         "topk_plain": time_ms(lambda: block_topk_bisect_ref(g, k=k,
                                                             block=tblock)),
     }
+    a = g.abs()
+    t["selection"] = time_ms(lambda: torch.topk(
+        a.view(-1, tblock * 128), k, dim=1))
     # natural: g, h, u read once and out written once (16 bytes an
     # element); ~15 operations an element (subtract, abs, the exponent
     # and mantissa masks, compare, select, doubling, sign, add, three
     # flush tests).  top-k: x read once, out written once (8 bytes);
-    # 32 bisection steps of a compare and an add an element
+    # TOPK_OPS integer operations an element at the f32 rate (the key:
+    # a mask, a flush test and select, a max; 4 radix passes of a shift,
+    # a compare and an atomic add; the write's compare and select)
     nb, nby = bound_ms(16 * n, 15 * n)
-    tb, tby = bound_ms(8 * n, 2 * 32 * n)
+    tb, tby = bound_ms(8 * n, TOPK_OPS * n)
     log(f"natural/topk timing at ({rows}, 128) f32 (the embedding leaf), "
         f"median of 20 (ms): shifted_natural_2d {t['nat']:.4f} (plain "
         f"{t['nat_plain']:.4f}, bound {nb:.4f} by {nby}); block_topk_2d "
         f"block {tblock} k {k} {t['topk']:.4f} (plain {t['topk_plain']:.4f}"
-        f", bound {tb:.4f} by {tby}); no single PyTorch call computes either")
-    del g, h, u
+        f", bound {tb:.4f} by {tby}); no single PyTorch call computes "
+        f"either; the selection alone, torch.topk of |g| in rows of "
+        f"{tblock * 128} (k {k}; not the function): {t['selection']:.4f}")
+    del g, h, u, a
     torch.cuda.empty_cache()
     return [
         {"name": "shifted_natural_2d", "route": "cuda",
@@ -876,7 +963,7 @@ def phase_natural_topk_kernels(cfg):
          "replaces": "src/repro/kernels/topk/kernel.py:51",
          "max_abs_err": err["block_topk_2d"], "ms": t["topk"],
          "plain_ms": t["topk_plain"], "bound_ms": tb, "bound_by": tby,
-         "library_ms": None},
+         "library_ms": None, "selection_ms": t["selection"]},
     ]
 
 
@@ -1302,10 +1389,17 @@ def main(argv=None):
     ap.add_argument("--wkv6-against", type=Path, metavar="OTHER.cu",
                     help="only time another version of wkv6.cu against "
                          "the checkout's")
+    ap.add_argument("--topk-against", type=Path, nargs="+",
+                    metavar="OTHER.cu",
+                    help="only time other versions of topk.cu against "
+                         "the checkout's")
     args = ap.parse_args(argv)
     card = phase_card()
-    if args.wkv6_against is not None:
-        wkv6_against(args.wkv6_against)
+    if args.wkv6_against is not None or args.topk_against is not None:
+        if args.wkv6_against is not None:
+            wkv6_against(args.wkv6_against)
+        if args.topk_against is not None:
+            topk_against(args.topk_against)
         log(card)
         return
     from repro_torch.configs import get_config

@@ -144,6 +144,10 @@ class CompressionConfig:
 
         q = make_compressor(self.compressor, **dict(self.compressor_kwargs))
         rule_name = self.effective_shift_rule
+        if rule_name == "vr_gdci":
+            raise NotImplementedError(
+                "shift rule 'vr_gdci' (Algorithm 2, core/iterate_comp.py) is "
+                "not ported yet: ROADMAP queue 1, item 3 (convex Algorithm 1)")
         rule_kwargs = {
             "fixed": {},
             "dcgd": {},

@@ -2,7 +2,8 @@
 Algorithm 1, in the wire formats the port runs (the reference's
 ``repro/dist/collectives.py``):
 
-  ``dense_mean``         exact f32 mean over the worker axis.
+  ``dense_mean``         exact f32 mean over the worker axis, in XLA's
+                         order (``_local_sum``).
   ``q8_ring_tree_mean``  ring all-reduce (reduce-scatter + all-gather)
                          over the mesh's ``data`` axis whose hops forward
                          encoded payloads: ``Int8Stochastic``'s through
@@ -56,8 +57,11 @@ AGGREGATION_MODES = ("dense", "randk_shared", "q8_ring", "q8_ring_fused")
 
 
 def dense_mean(wtree: Tree) -> Tree:
-    """Exact mean over the leading worker axis, leaf-wise."""
-    return {k: a.mean(dim=0) for k, a in wtree.items()}
+    """Exact mean over the leading worker axis, leaf-wise, bit for bit
+    the reference's ``jnp.mean(a, axis=0)`` as XLA computes it (see
+    ``_local_sum`` and ``_mean_of_sum``)."""
+    return {k: _mean_of_sum(_local_sum(a), a.shape[0], a.dtype)
+            for k, a in wtree.items()}
 
 
 def _leaf_indices(leaves, leaf_indices) -> tuple:
@@ -133,14 +137,42 @@ def _ring_schedule(noise, leaf: int, chunks: torch.Tensor, n: int, *,
     return final
 
 
-def _local_sum(rows: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``out`` = the f32 sum of ``rows`` over the leading axis, one row
-    after another: the order of XLA's CPU reduce in the reference
-    (``torch.sum`` may pair rows otherwise)."""
+#: XLA's CPU reduce adds at most this many rows one after another
+_XLA_WINDOW = 32
+
+
+def _local_sum(rows: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out`` (allocated when None) = the f32 sum of ``rows`` over the
+    leading axis in the order of XLA's CPU reduce in the reference:
+    up to 32 rows one after another; a longer axis zero-padded to a
+    multiple of 32, the smaller half of the padding in front, cut into
+    windows of 32 rows each summed in order, and the window sums summed
+    the same way.  (``torch.sum`` may pair rows otherwise.)"""
+    if out is None:
+        out = torch.empty(rows.shape[1:], dtype=torch.float32,
+                          device=rows.device)
+    w = rows.shape[0]
+    if w > _XLA_WINDOW:
+        n = -(-w // _XLA_WINDOW)
+        front = (n * _XLA_WINDOW - w) // 2
+        sums = torch.empty((n, *rows.shape[1:]), dtype=torch.float32,
+                           device=rows.device)
+        for i in range(n):
+            lo = max(i * _XLA_WINDOW - front, 0)
+            _local_sum(rows[lo:(i + 1) * _XLA_WINDOW - front], sums[i])
+        return _local_sum(sums, out)
     out.copy_(rows[0])
     for r in rows[1:]:
         out += r
     return out
+
+
+def _mean_of_sum(acc: torch.Tensor, w: int, dtype) -> torch.Tensor:
+    """``acc * f32(1/w)`` in ``dtype``: XLA's form of a mean, whose
+    division by a constant is a multiply by its f32 reciprocal.  Scales
+    the f32 sum ``acc`` in place."""
+    return acc.mul_(torch.tensor(1.0 / w, dtype=torch.float32)).to(dtype)
 
 
 def _ring_buffers(x: torch.Tensor, n: int, chunk_shape) -> torch.Tensor:
@@ -243,13 +275,8 @@ def q8_ring_tree_mean(noise, tree: Tree, mesh, *,
         if not mesh.holds(x):
             raise ValueError(f"leaf {k!r} is on {x.device}, the mesh on "
                              f"{mesh.device}")
-        if n == 1:
-            acc = _local_sum(x, torch.empty(x.shape[1:], dtype=torch.float32,
-                                            device=x.device))
-        else:
-            acc = ring(noise, idxs[i], x, n, codec)
-        inv_w = torch.tensor(1.0 / w, dtype=torch.float32)
-        out[k] = (acc * inv_w).to(x.dtype)
+        acc = _local_sum(x) if n == 1 else ring(noise, idxs[i], x, n, codec)
+        out[k] = _mean_of_sum(acc, w, x.dtype)
         del acc   # this leaf's sum is not held while the next one reduces
     return out
 

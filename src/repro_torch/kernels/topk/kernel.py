@@ -24,7 +24,8 @@ from repro_torch.kernels.topk.ref import (DEFAULT_BLOCK_ROWS, LANE,
 
 __all__ = ["DEFAULT_BLOCK_ROWS", "LANE", "MAX_BLOCK_ROWS", "block_topk_2d"]
 
-#: rows of one block the kernel holds in registers (64 x 128 = 8192)
+#: rows of one block the kernel holds: its keys in registers, the block
+#: in a shared-memory stage (64 x 128 = 8192 elements)
 MAX_BLOCK_ROWS = 64
 
 _VP = ctypes.c_void_p
@@ -32,8 +33,10 @@ _INT = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("topk")
+def _lib(source=None) -> ctypes.CDLL:
+    """The built library: of ``csrc/topk.cu``, or of ``source``, another
+    version of it with the same C interface."""
+    lib = _build.load("topk", source)
     if not getattr(lib, "_topk_typed", False):
         lib.block_topk_2d.argtypes = [_VP, _VP, ctypes.c_longlong, _INT, _INT,
                                       _INT, _VP]
@@ -45,10 +48,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def block_topk_2d(x: torch.Tensor, *, k: int,
-                  block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+                  block_rows: int = DEFAULT_BLOCK_ROWS,
+                  source=None) -> torch.Tensor:
     """x: (R, 128) f32 or bf16, R a multiple of ``block_rows`` (1 to
     MAX_BLOCK_ROWS).  Keeps the top-k magnitudes of each (block_rows, 128)
-    block (more on exact ties at the threshold); returns x's dtype."""
+    block (more on exact ties at the threshold); returns x's dtype.
+    ``source``: build the kernel from another version of ``topk.cu``."""
     r, lane = x.shape
     if lane != LANE or r < 1 or block_rows < 1 or r % block_rows:
         raise ValueError(f"expected (R, {LANE}) with R % block_rows == 0; "
@@ -68,7 +73,7 @@ def block_topk_2d(x: torch.Tensor, *, k: int,
     if x.data_ptr() % 16:
         raise ValueError("x: data pointer not 16-byte aligned")
     out = torch.empty_like(x)
-    lib = _lib()
+    lib = _lib(source)
     with torch.cuda.device(x.device):
         err = lib.block_topk_2d(
             x.data_ptr(), out.data_ptr(), r, block_rows, k,

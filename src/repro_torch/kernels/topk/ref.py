@@ -2,7 +2,7 @@
 (block, 128) row block of an (R, 128) array keeps its largest-magnitude
 entries and zeroes the rest.
 
-Two forms, as in the reference:
+Three forms: two as in the reference, and the kernel's own:
 
 * ``block_topk_bisect_ref`` is the function the TPU kernel computes
   (``repro/kernels/topk/kernel.py:_block_topk_kernel``): the threshold
@@ -15,10 +15,17 @@ Two forms, as in the reference:
   it keeps every finite entry and writes 0 at the NaN.  Subnormal
   magnitudes and midpoints count as zero, as XLA on the CPU flushes them
   when it runs the reference.
+* ``block_topk_kth_ref`` computes the same function the way the CUDA
+  kernel does: for ``mid >= 0``, ``count(a >= mid) >= k`` holds exactly
+  when ``kth >= mid``, ``kth`` the k-th largest of ``a = ftz(|x|)``, so
+  the 32 steps are replayed on ``(kth, max a)`` alone (``kth`` here from
+  ``torch.topk``, in the kernel from a radix select).  It is the plain
+  model of the kernel's algorithm, held bitwise against the bisection by
+  the tests.
 * ``block_topk_ref`` is the reference's oracle
   (``repro/kernels/topk/ref.py``): the exact k-th magnitude per block,
-  keeping ``|x| >= kth``.  On data without ties across the threshold the
-  two agree.
+  keeping ``|x| >= kth``.  On data without ties across the threshold it
+  agrees with the bisection.
 """
 
 from __future__ import annotations
@@ -51,6 +58,30 @@ def block_topk_bisect_ref(x: torch.Tensor, *, k: int,
     for _ in range(BISECT_ITERS):
         mid = ftz((lo + hi) * 0.5)
         raise_lo = (a >= mid[:, None]).sum(dim=1) >= k
+        lo = torch.where(raise_lo, mid, lo)
+        hi = torch.where(raise_lo, hi, mid)
+    out = torch.where(a >= lo[:, None], xb, torch.zeros_like(xb))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def block_topk_kth_ref(x: torch.Tensor, *, k: int,
+                       block: int) -> torch.Tensor:
+    """``block_topk_bisect_ref``'s function from the k-th magnitude: the
+    bisection replayed on ``(kth, max a)`` with no count over the block.
+    ``k <= 0`` raises ``lo`` at every step and ``k`` above the block's
+    size never does, as the counts would."""
+    xb = _blocks(x, block).to(torch.float32)
+    a = ftz(xb.abs())
+    hi = a.amax(dim=1)                      # propagates NaN, as jnp.max
+    lo = torch.zeros_like(hi)
+    if 1 <= k <= a.shape[1]:
+        kth = torch.topk(a, k, dim=1).values[:, -1]
+    for _ in range(BISECT_ITERS):
+        mid = ftz((lo + hi) * 0.5)
+        if 1 <= k <= a.shape[1]:
+            raise_lo = mid <= kth
+        else:
+            raise_lo = torch.full_like(mid, k <= 0, dtype=torch.bool)
         lo = torch.where(raise_lo, mid, lo)
         hi = torch.where(raise_lo, hi, mid)
     out = torch.where(a >= lo[:, None], xb, torch.zeros_like(xb))

@@ -19,7 +19,7 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
           [--compressor natural|topk|q8_block|...] [--shift-rule diana] \
           [--comm-mode dense|q8_ring|q8_ring_fused|ef21|efbv] \
-          [--efbv-eta ETA] [--efbv-nu NU] \
+          [--drift-resync-every N] [--efbv-eta ETA] [--efbv-nu NU] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
 
 The worker count is the size of the host mesh's ``data`` axis, as in the
@@ -50,6 +50,13 @@ from repro_torch.optim.optimizers import make_optimizer
 #: CLI comm modes: the channel registry minus the reference-only
 #: parameter server (unported modes raise from ``make_channel``)
 COMM_MODES = tuple(m for m in CHANNEL_MODES if m != "sim")
+
+#: CLI shift rules, the reference's: the registry minus the oracle rule
+#: (it needs the gradients at the optimum) plus the iterate-compression
+#: Algorithm 2 (unported rules raise from ``CompressionConfig.make``)
+SHIFT_RULE_CHOICES = tuple(
+    r for r in SHIFT_RULES if r != "star"
+) + ("vr_gdci",)
 
 
 class TrainState(NamedTuple):
@@ -132,11 +139,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the reduced smoke variant of the arch")
     ap.add_argument("--compressor", default="natural")
     ap.add_argument("--shift-rule", "--shift_rule", dest="shift_rule",
-                    default="diana", choices=list(SHIFT_RULES))
+                    default="diana", choices=list(SHIFT_RULE_CHOICES))
     ap.add_argument("--comm-mode", "--comm_mode", dest="comm_mode",
                     default="dense", choices=list(COMM_MODES),
                     help="channel aggregation format; ef21/efbv select the "
                          "error-feedback modes (implying their rule)")
+    ap.add_argument("--drift-resync-every", "--drift_resync_every",
+                    dest="drift_resync_every", type=int, default=0,
+                    help="every N rounds resync h_bar from a dense reduce "
+                         "of the worker shifts (bounds shift-tracking "
+                         "drift over lossy aggregation; 0 = off)")
     ap.add_argument("--efbv-eta", "--efbv_eta", dest="efbv_eta",
                     type=float, default=1.0,
                     help="EF-BV shift integration rate (1.0 = EF21)")
@@ -161,6 +173,7 @@ def main(argv: Optional[list] = None):
         compressor=args.compressor,
         shift_rule=args.shift_rule,
         comm_mode=args.comm_mode,
+        drift_resync_every=args.drift_resync_every,
         efbv_eta=args.efbv_eta,
         efbv_nu=args.efbv_nu,
     )

@@ -8,6 +8,9 @@ On the CPU the port's wrapper runs its plain version, the bisection the
 TPU kernel computes (``block_topk_bisect_ref``): held BITWISE against
 the interpreted kernel, including heavy tails, exact ties across the
 threshold, a NaN, infinities, subnormals and a padded last block.  The
+CUDA kernel's own algorithm -- the k-th magnitude, then the bisection
+replayed on two scalars (``block_topk_kth_ref``) -- is held bitwise
+against that plain version.  The
 CUDA kernel is held bitwise against the same plain version on the card
 by ``chip_smoke.py``.  Comparisons are of bit patterns (any NaN equals
 any NaN).
@@ -24,7 +27,8 @@ from repro.kernels.topk.ops import block_topk as jax_wrapper
 from repro.kernels.topk.ref import block_topk_ref as jax_oracle
 from repro_torch.kernels.topk.kernel import MAX_BLOCK_ROWS, block_topk_2d
 from repro_torch.kernels.topk.ops import block_topk, topk_layout
-from repro_torch.kernels.topk.ref import block_topk_ref
+from repro_torch.kernels.topk.ref import (block_topk_bisect_ref,
+                                          block_topk_kth_ref, block_topk_ref)
 
 F32 = np.float32
 
@@ -151,3 +155,103 @@ def test_layout_and_checks():
         block_topk_2d(x, k=10, block_rows=4)
     with pytest.raises(TypeError):
         block_topk_2d(x.double(), k=10, block_rows=2)
+
+
+def _kth_case(kind, block, rng):
+    """Two row blocks (the second a padded last block for ``padded``)."""
+    x = rng.standard_normal((2 * block, 128)).astype(F32)
+    if kind == "ties":
+        x = np.round(x * 2.0).astype(F32)
+    elif kind == "nan":
+        x[0, 5] = np.nan
+    elif kind == "inf":
+        x[0, :2] = [np.inf, -np.inf]
+        x[-1, 3] = np.inf
+    elif kind == "subnormal":      # flushed magnitudes, some at the k-th
+        x[:block] *= F32(1e-39)
+        x[block:, ::2] *= F32(1e-40)
+    elif kind == "scales":         # one scale a row, 1e-40 to 1e37
+        x *= np.logspace(-40, 37, 2 * block).astype(F32)[:, None]
+    elif kind == "padded":         # the wrapper's zero padding
+        x[block + block // 2:] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "nan", "inf", "subnormal",
+                                  "scales", "padded"])
+@pytest.mark.parametrize("k", [0, 1, 13, 102, 128, 358, 819, 8192])
+@pytest.mark.parametrize("block", [1, 8, 28, 64])
+def test_kth_form_bitwise_vs_bisection(block, k, kind, dtype):
+    """For mid >= 0, count(a >= mid) >= k exactly when kth >= mid: the
+    bisection replayed on (kth, max a) gives the same lo, so the same
+    bits, with ties, NaN, infinities, flushed magnitudes, extreme scales,
+    k = 0, k above the block's size and padding."""
+    x = torch.from_numpy(_kth_case(kind, block,
+                                   np.random.default_rng(block * 31 + k)))
+    x = x.to(getattr(torch, dtype))
+    got = block_topk_kth_ref(x, k=k, block=block)
+    ref = block_topk_bisect_ref(x, k=k, block=block)
+    assert got.dtype == x.dtype
+    assert _same(got.float().numpy(), ref.float().numpy()).all()
+
+
+def test_cpu_tensor_runs_the_bisection(monkeypatch):
+    """The wrapper dispatches on the tensor's device alone: a CPU tensor
+    goes through ``block_topk_bisect_ref`` (never the kernel's library)."""
+    from repro_torch.kernels.topk import kernel as K
+
+    calls = []
+
+    def spy(x, *, k, block):
+        calls.append((tuple(x.shape), k, block))
+        return block_topk_bisect_ref(x, k=k, block=block)
+
+    monkeypatch.setattr(K, "block_topk_bisect_ref", spy)
+    monkeypatch.setattr(K, "_lib", lambda source=None: pytest.fail("built"))
+    x = torch.from_numpy(_kth_case("normal", 8, np.random.default_rng(0)))
+    out = K.block_topk_2d(x, k=102, block_rows=8)
+    assert calls == [((16, 128), 102, 8)]
+    assert torch.equal(out, block_topk_bisect_ref(x, k=102, block=8))
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("others", [["old.cu"], ["old.cu", "other.cu"]])
+def test_chip_smoke_topk_against_needs_a_card(others, monkeypatch, capsys):
+    """The old-against-new timing mode fails without CUDA rather than
+    timing anything on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_:
+        _chip_smoke().main(["--topk-against", *others])
+    assert exit_.value.code == 1
+    assert "needs a GPU" in capsys.readouterr().err
+
+
+def test_chip_smoke_ptxas_report_names_the_topk_kernels():
+    """The ptxas report (as nvcc -Xptxas=-v prints it for topk.cu) is
+    parsed into one line per instantiation of the kernel."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__6bf183df"
+        "_9_topk_cu_d3706a4717block_topk_kernelINS_5F32x4EEEvPKNT_3RawEPS3_"
+        "iii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 2176 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__6bf183df"
+        "_9_topk_cu_d3706a4717block_topk_kernelINS_6BF16x4EEEvPKNT_3RawEPS3_"
+        "iii' for 'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 2176 bytes smem",
+    ])
+    assert _chip_smoke().ptxas_report(log) == [
+        ("block_topk_kernel<f32>", 80, 0, 0, 2176),
+        ("block_topk_kernel<bf16>", 64, 8, 4, 2176)]

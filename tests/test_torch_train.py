@@ -61,7 +61,7 @@ class ReplayNoise:
         return torch.from_numpy(u.copy())
 
 
-def shift_round_uniforms(key, params, diana=True):
+def shift_round_uniforms(key, params, diana=True, w=W):
     """The uniforms the reference's ``Channel.shift_round`` draws with
     round key ``key``, along its own key chain: the 3-split (k_msg),
     leaf_key, DIANA's split (kq; the C = Zero half draws nothing),
@@ -74,7 +74,7 @@ def shift_round_uniforms(key, params, diana=True):
         if diana:
             _, kq = jax.random.split(kq)
         _, _, rows_pad = q8_layout(int(np.prod(leaf.shape)))
-        for j, wk in enumerate(jax.random.split(kq, W)):
+        for j, wk in enumerate(jax.random.split(kq, w)):
             draws.append(
                 (i, j, np.asarray(jax.random.uniform(wk, (rows_pad, 128)))))
     return draws
@@ -227,9 +227,22 @@ def test_three_steps_match_reference(reference):
 def test_shift_round_matches_reference(rule, channel):
     """One round of each ported rule through each ported channel, on a
     small tree with a leaf spanning several q8 tiles, one short tile and
-    one scalar-sized leaf, from the same gradients, shifts and uniforms.
-    The codec is bitwise on both sides; the worker mean and the shift
-    update agree to f32 rounding."""
+    one scalar-sized leaf, from the same gradients, shifts and uniforms:
+    bitwise -- the codec, the worker mean (summed in XLA's order, times
+    f32(1/W)) and the shift update."""
+    _shift_round_bitwise(rule, channel, W)
+
+
+@pytest.mark.parametrize("channel", ["sim", "dense"])
+@pytest.mark.parametrize("rule", ["fixed", "diana"])
+@pytest.mark.parametrize("w", [3, 10])
+def test_shift_round_bitwise_at_other_worker_counts(w, rule, channel):
+    """The same round at worker counts that are not powers of two, where
+    ``torch.mean``'s order differed from the reference's."""
+    _shift_round_bitwise(rule, channel, w)
+
+
+def _shift_round_bitwise(rule, channel, w):
     from repro.comm.channel import SimChannel as JaxSim
     from repro.comm.channel import MeshChannel as JaxMesh
     from repro.core.shift_rules import make_shift_rule as jax_rule
@@ -241,7 +254,7 @@ def test_shift_round_matches_reference(rule, channel):
     rng = np.random.default_rng(5)
     shapes = {"a": (3, 4000), "b": {"c": (200,), "d": (1,)}}
     grads = jax.tree_util.tree_map(
-        lambda s: rng.standard_normal((W, *s)).astype(np.float32),
+        lambda s: rng.standard_normal((w, *s)).astype(np.float32),
         shapes, is_leaf=lambda s: isinstance(s, tuple))
     kw = {"alpha": ALPHA} if rule == "diana" else {}
     jr, pr = jax_rule(rule, **kw), port_rule(rule, **kw)
@@ -259,7 +272,7 @@ def test_shift_round_matches_reference(rule, channel):
             k: torch.from_numpy(np.array(v)) for k, v in flatten_tree(t).items()}
 
     like = jax.tree_util.tree_map(lambda g: g[0], grads)
-    noise = ReplayNoise(shift_round_uniforms(key, like, rule == "diana"))
+    noise = ReplayNoise(shift_round_uniforms(key, like, rule == "diana", w))
     pg, ph, phb, pbits = pr.round(FusedQ8(), noise, port(grads), port(h),
                                   port(h_bar), make_channel(channel))
     assert not noise.draws
@@ -270,8 +283,8 @@ def test_shift_round_matches_reference(rule, channel):
             continue
         for k, r in flatten_tree(jax.tree_util.tree_map(np.asarray,
                                                         ref)).items():
-            np.testing.assert_allclose(got[k].numpy(), r, rtol=0,
-                                       atol=TIGHT * np.abs(r).max(), err_msg=k)
+            np.testing.assert_array_equal(got[k].numpy().view(np.int32),
+                                          r.view(np.int32), err_msg=k)
 
 
 @pytest.mark.parametrize("flags", [[], ["--shift-rule", "fixed"],
