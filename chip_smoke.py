@@ -24,7 +24,7 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    call, and through views that start off a 16-byte boundary, bitwise
    equal to fresh tensors; print their registers, shared memory and spills from the
    build's ptxas report; time them at the path's shape.
-4. Cross-check, for qwen3-0.6b in the ``dense`` and the
+4. Cross-check, for qwen3-0.6b (DIANA + q8) in the ``dense`` and the
    ``q8_ring_fused`` mode and for rwkv6-3b in ``dense``: one step of
    the smoke config on the card (kernels) and on the CPU (plain
    versions) from one state and one stream of uniforms; bits exactly,
@@ -54,11 +54,14 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    and beside top-k its selection alone (``torch.topk`` of the
    magnitudes, a row a block: not the function); the top-k kernel's
    registers, shared memory and spills from ptxas.
-   Cross-checks as in 4 for DIANA + ``natural`` and for ``ef21`` +
-   ``topk``.
-9. Two more full-size qwen3-0.6b paths, 3 steps each with the checks of
-   5: DIANA + ``natural`` + dense (the reference's default
-   configuration) and ``ef21`` + ``topk`` (q = 0.1).
+   Cross-checks as in 4 for DIANA + ``natural``, for ``ef21`` +
+   ``topk`` and for ``vr_gdci`` + ``randk`` (Algorithm 2: the round
+   mixes the params, AdamW is bypassed).
+9. Three more full-size qwen3-0.6b paths, 3 steps each with the checks
+   of 5: DIANA + ``natural`` + dense (the reference's default
+   configuration), ``ef21`` + ``topk`` (q = 0.1) and ``rand_diana``
+   (p = 0.05) + ``randk`` (q = 0.1), whose bits add one dense f32
+   message for each refresh drawn (the round's aux draws, counted).
 10. The entry points of the two kernels, ``shifted_natural(rand, g, h)``
    and ``block_topk(g, q=0.1)``, over all 13 full-size qwen3-0.6b
    leaves, with g worker 0's gradient of a fourth step of the natural
@@ -66,6 +69,15 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    times, every output bitwise equal to its plain version, and the
    natural output equal to ``h + NaturalCompression`` of ``g - h`` with
    the same uniforms wherever ``|g - h| >= 2^-126``.
+11. The convex path (``core.simulate``): the theorem tests' runs on the
+   paper's ridge instance (m = 100, d = 80, 10 workers, noise 10) and
+   Rand-DIANA on logistic regression (m = 300, d = 60), each with its
+   test's step size and step count, on the card from a recorded
+   ``GeneratorNoise``, timed with CUDA events over the run; each
+   theorem's conclusion checked on the card's traces; each run then
+   replayed on the CPU from the recorded draws and x0, its bits trace
+   equal to the card's.  No kernel: the codecs are plain PyTorch, as
+   the reference's are plain jnp.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -195,7 +207,13 @@ class HostNoise:
         self.gen = torch.Generator().manual_seed(seed)
         self.device = device
 
-    def uniform(self, leaf, worker, shape):
+    def uniform(self, leaf, worker, shape, part=None):
+        return torch.rand(shape, generator=self.gen).to(self.device)
+
+    def permutation(self, leaf, worker, d, part=None):
+        return torch.randperm(d, generator=self.gen).to(self.device)
+
+    def aux_uniform(self, shape):
         return torch.rand(shape, generator=self.gen).to(self.device)
 
     def ring_uniform(self, leaf, hop, shape):
@@ -1044,14 +1062,16 @@ def phase_entry_points(g0, h0):
     return launches
 
 
-def _slice_configs(cfg, comm_mode="dense", codec="q8_block"):
-    """DIANA (or the comm mode's own rule: ``ef21``) with ``codec``."""
+def _slice_configs(cfg, comm_mode="dense", codec="q8_block", rule="diana"):
+    """``rule`` (or the comm mode's own rule: ``ef21``) with ``codec``;
+    top-k keeps TOPK_Q, randk its default q = 0.1, Rand-DIANA the
+    config's p = 0.05."""
     from repro_torch.configs.base import CompressionConfig, TrainConfig
 
     comp = CompressionConfig(
         enabled=True, compressor=codec,
         compressor_kwargs=(("q", TOPK_Q),) if codec == "topk" else (),
-        shift_rule="diana", comm_mode=comm_mode)
+        shift_rule=rule, comm_mode=comm_mode)
     return TrainConfig(learning_rate=LR, total_steps=STEPS,
                        warmup_steps=1, compression=comp)
 
@@ -1086,6 +1106,8 @@ def message_step(msg, codec, block_rows=64):
         return lattice(msg, block_rows)
     if codec == "natural":
         return msg.abs()
+    if codec == "randk":
+        return torch.zeros_like(msg)
     w = msg.shape[0]
     flat = msg.reshape(w, -1).abs()
     k = max(1, round(TOPK_Q * flat.shape[1]))
@@ -1108,7 +1130,7 @@ def ring_tile_max(step, n, block_rows=64):
             .reshape(step.shape))
 
 
-def phase_cross_check(arch, comm_mode, codec="q8_block"):
+def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
     """One smoke-config step on the card and on the CPU, same state and
     uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
 
@@ -1140,7 +1162,11 @@ def phase_cross_check(arch, comm_mode, codec="q8_block"):
     ``message_step``'s: a flipped natural rounding moves a message
     element by at most its own magnitude, a top-k place traded at the
     k-th magnitude by at most that magnitude; the shift integrates the
-    message at DIANA's alpha or EF21's 1 (``shift_rate``)."""
+    message at DIANA's alpha or EF21's 1 (``shift_rate``).  ``randk``
+    draws its coordinates from the same stream on both sides, so its
+    messages flip nothing: shifts within f32 noise.  With ``vr_gdci``
+    the round mixes the params itself (VR-GDCI's alpha integrates the
+    messages into the shifts)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch.mesh import HostMesh
@@ -1149,9 +1175,9 @@ def phase_cross_check(arch, comm_mode, codec="q8_block"):
     TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
     ring = comm_mode.startswith("q8_ring")
     cfg = get_smoke_config(arch).with_(dtype="float32")
-    tcfg = _slice_configs(cfg, comm_mode, codec)
+    tcfg = _slice_configs(cfg, comm_mode, codec, rule)
     alpha = shift_rate(tcfg.compression)
-    what = f"cross-check {arch} {comm_mode} {codec}"
+    what = f"cross-check {arch} {comm_mode} {codec} {rule}"
     block_rows = tcfg.compression.q8_block_rows
     ring_growth = (2 * RING + 1) / (1 - (RING - 1) / 127)
     batch = TokenStream(cfg, 32, BATCH).batch(0)
@@ -1226,38 +1252,69 @@ def phase_cross_check(arch, comm_mode, codec="q8_block"):
         f"noise {off} of {total}, max |diff| {worst:.3e}")
 
 
-def structural_bits(cfg, steps, codec="q8_block"):
+RANDK_Q = 0.1               # keep fraction of the randk codec (its default)
+
+
+def structural_bits(cfg, steps, codec="q8_block", refreshes=None):
     """The f32 bit counter the step must report, from leaf shapes alone:
     per leaf and worker, q8 the int8 lanes block and one f32 scale per
     tile; natural 9 bits an element (8-bit exponent, 1-bit sign); top-k
-    k = round(q d) values of 32 bits and indices of ceil(log2 d) bits."""
+    and randk k = round(q d) values of 32 bits and indices of
+    ceil(log2 d) bits.  ``refreshes``: Rand-DIANA's refreshing workers of
+    each step, each charged one dense f32 message of every param."""
     from repro_torch.kernels.q8ring.ops import q8_layout
     from repro_torch.models.model import param_specs
 
     step_bits = np.float32(0)
+    dense = 0
     for _, shape, _ in param_specs(cfg):
         d = math.prod(shape)
+        dense += 32 * d
         if codec == "natural":
             leaf = W * 9 * d
-        elif codec == "topk":
-            k = max(1, round(TOPK_Q * d))
+        elif codec in ("topk", "randk"):
+            k = max(1, round((TOPK_Q if codec == "topk" else RANDK_Q) * d))
             leaf = W * k * (32 + math.ceil(math.log2(max(d, 2))))
         else:
             _, block, rows_pad = q8_layout(d)
             leaf = W * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
         step_bits = np.float32(step_bits + np.float32(leaf))
     total = np.float32(0)
-    for _ in range(steps):
-        total = np.float32(total + step_bits)
+    for i in range(steps):
+        extra = np.float32(0) if refreshes is None else (
+            np.float32(refreshes[i]) * np.float32(dense))
+        total = np.float32(total + np.float32(step_bits + extra))
     return float(total)
 
 
-def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False):
+class RefreshCount:
+    """Hands a noise source's draws through, keeping the round's aux
+    draws (Rand-DIANA's refresh uniforms) to count the refreshes."""
+
+    def __init__(self, source):
+        self.source, self.aux = source, []
+
+    def uniform(self, *args, **kw):
+        return self.source.uniform(*args, **kw)
+
+    def permutation(self, *args, **kw):
+        return self.source.permutation(*args, **kw)
+
+    def ring_uniform(self, *args):
+        return self.source.ring_uniform(*args)
+
+    def aux_uniform(self, shape):
+        self.aux.append(self.source.aux_uniform(shape))
+        return self.aux[-1]
+
+
+def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
+                    rule="diana"):
     """3 steps of ``cfg`` in ``comm_mode`` (``dense`` or ``ef21``, or
     ``q8_ring_fused`` over a ``HostMesh(data=RING)`` on the card) with
-    ``codec``; returns the kernels' launch counts of those steps and, with
-    ``keep``, worker 0's gradient of a fourth step and its shift before
-    it (the entry-point phase's inputs), else None."""
+    ``codec`` and ``rule``; returns the kernels' launch counts of those
+    steps and, with ``keep``, worker 0's gradient of a fourth step and
+    its shift before it (the entry-point phase's inputs), else None."""
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.natural.kernel import shifted_natural_2d
     from repro_torch.kernels.q8ring import kernel as K
@@ -1268,10 +1325,12 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False):
 
     ring = comm_mode.startswith("q8_ring")
     n = RING if ring else 1
-    tcfg = _slice_configs(cfg, comm_mode, codec)
+    tcfg = _slice_configs(cfg, comm_mode, codec, rule)
     mesh = HostMesh(data=n, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     state = init_state(0, cfg, tcfg, W)            # on the CUDA device
+    counter = RefreshCount(state.noise)
+    state = state._replace(noise=counter)
     step = build_train_step(cfg, tcfg, W, mesh)
     stream = TokenStream(cfg, SEQ, BATCH)
     batches = [stream.batch(i, "cuda") for i in range(STEPS + 1)]
@@ -1317,10 +1376,15 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False):
     check(all(math.isfinite(v) for v in losses), f"loss not finite: {losses}")
     check(all(torch.isfinite(p).all().item() for p in state.params.values()),
           "params not finite")
-    check(metrics["bits"].item() == structural_bits(cfg, STEPS, codec),
-          f"bits {metrics['bits'].item()} != structural "
-          f"{structural_bits(cfg, STEPS, codec)}")
-    what = f"main path {cfg.name} {comm_mode} {codec}"
+    refreshes = None
+    if rule == "rand_diana":
+        p = tcfg.compression.shift_p
+        refreshes = [int((u < p).sum()) for u in counter.aux[:STEPS]]
+    want = structural_bits(cfg, STEPS, codec, refreshes)
+    check(metrics["bits"].item() == want,
+          f"bits {metrics['bits'].item()} != structural {want}")
+    what = f"main path {cfg.name} {comm_mode} {codec}" + (
+        "" if rule == "diana" else f" {rule}")
     check(launches == expect, f"{what}: launches {launches}, expected "
                               f"{expect}")
     check(acc_launches == expect_acc,
@@ -1331,7 +1395,9 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False):
         f"{leaves} leaves, w={W}, ring positions {n}, batch {BATCH}, seq "
         f"{SEQ}")
     log(f"{what}: losses {losses}; bits {metrics['bits'].item():.0f} "
-        f"(structural); launches {launches}, of which accumulating dequant "
+        f"(structural" + ("" if refreshes is None else
+                          f"; workers refreshed per step {refreshes}")
+        + f"); launches {launches}, of which accumulating dequant "
         f"{acc_launches} (as expected)")
     log(f"{what}: step seconds {[round(t, 4) for t in step_s]}; peak "
         f"memory allocated {peak / 2**30:.2f} GiB")
@@ -1367,19 +1433,256 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
         split_batch(batch, W)))
     (m, _), t["message"] = timed(lambda: rule.message(
         q, state.noise, grads, state.h))
-    m_bar, t["aggregation"] = timed(lambda: channel.reduce_mean(
-        state.noise, m))
+    (aux, _), t["aux"] = timed(lambda: rule.aux(state.noise, grads, state.h))
+    m_bar, t["aggregation"] = timed(lambda: channel.reduce(state.noise, m))
     (g_bar, _, _), t["apply"] = timed(lambda: rule.apply(
-        grads, m, m_bar, state.h, state.h_bar, None))
+        grads, m, m_bar, state.h, state.h_bar, aux))
     g0 = {k: g[0].clone() for k, g in grads.items()} if keep else None
     del grads, m, m_bar
     _, t["adamw"] = timed(lambda: optimizer.update(g_bar, state.opt,
                                                    state.params))
     total = sum(t.values())
     log(f"breakdown {cfg.name} {tcfg.compression.comm_mode} "
-        f"{tcfg.compression.compressor} (s): "
+        f"{tcfg.compression.compressor} "
+        f"{tcfg.compression.effective_shift_rule} (s): "
         + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items()))
     return g0
+
+
+# -- the convex path (Algorithm 1 and 2 on the paper's problems) ------------
+
+
+class RecordingNoise:
+    """A noise source that keeps every draw it hands out, tagged as
+    ``repro_torch.comm.wire`` tags them, for a replay elsewhere."""
+
+    def __init__(self, source):
+        self.source, self.tags, self.draws = source, [], []
+
+    def _keep(self, tag, t):
+        self.tags.append(tag)
+        self.draws.append(t)
+        return t
+
+    def uniform(self, leaf, worker, shape, part=None):
+        return self._keep(("uniform", leaf, worker, part),
+                          self.source.uniform(leaf, worker, shape, part))
+
+    def permutation(self, leaf, worker, d, part=None):
+        return self._keep(("permutation", leaf, worker, part),
+                          self.source.permutation(leaf, worker, d, part))
+
+    def aux_uniform(self, shape):
+        return self._keep(("aux", None, None, None),
+                          self.source.aux_uniform(shape))
+
+    def replay(self, device):
+        """The draws as a ``ReplayNoise`` on ``device``: each dtype's
+        draws moved in one copy."""
+        flat = {}
+        for i, t in enumerate(self.draws):
+            flat.setdefault(t.dtype, []).append(i)
+        out = [None] * len(self.draws)
+        for idx in flat.values():
+            parts = torch.cat([self.draws[i].reshape(-1) for i in idx]).to(
+                device).split([self.draws[i].numel() for i in idx])
+            for i, p in zip(idx, parts):
+                out[i] = p.view(self.draws[i].shape)
+        return ReplayNoise(list(zip(self.tags, out)))
+
+
+class ReplayNoise:
+    """Hands back recorded draws in order, checking each one's tag."""
+
+    def __init__(self, draws):
+        self.draws, self.at = draws, 0
+
+    def _pop(self, tag):
+        want, t = self.draws[self.at]
+        check(tag == want, f"replay: draw {self.at} asked as {tag}, "
+                           f"recorded as {want}")
+        self.at += 1
+        return t
+
+    def uniform(self, leaf, worker, shape, part=None):
+        return self._pop(("uniform", leaf, worker, part))
+
+    def permutation(self, leaf, worker, d, part=None):
+        return self._pop(("permutation", leaf, worker, part))
+
+    def aux_uniform(self, shape):
+        return self._pop(("aux", None, None, None))
+
+
+def convex_runs(P):
+    """The convex runs: name -> (problem, runner, method, gamma, steps,
+    seed, use_star), each with its theorem test's compressor, step size,
+    step count and seed (tests/test_theorems.py on the paper's ridge
+    instance; tests/test_algorithms.py's Rand-DIANA on logistic
+    regression, here at fig4_logreg's m = 300, d = 60).  ``P`` is the
+    problems on one device."""
+    from repro_torch import core as C
+
+    r = P["ridge"]
+    n, d = r.n_workers, r.d
+    q = C.RandK(0.25)
+    om = q.omega(d)
+    c = C.TopK(0.1)
+    alpha, g_d = C.stepsize_diana(r.L_max, om, 0.0, n)
+    alpha_c, g_dc = C.stepsize_diana(r.L_max, om, C.TopK(0.25).delta(d), n)
+    p = C.rand_diana_default_p(om)
+    g_ef = 16.0 * C.stepsize_ef21(r.L, r.L_max, c.delta(d))
+    eta_c, nu_c = C.efbv_params(delta=c.delta(d))
+    g_bvc = 16.0 * C.stepsize_efbv(r.L, r.L_max, delta=c.delta(d), eta=eta_c,
+                                   nu=nu_c)
+    eta_u, nu_u = C.efbv_params(omega=om)
+    g_bvu = 16.0 * C.stepsize_efbv(r.L, r.L_max, omega=om, eta=eta_u,
+                                   nu=nu_u)
+    q5 = C.RandK(0.5)
+    eta_g, gamma_g = C.stepsize_gdci(r.L, r.L_max, r.mu, q5.omega(d), n)
+    a_v, eta_v, gamma_v = C.stepsize_vr_gdci(r.L, r.L_max, r.mu,
+                                             q5.omega(d), n)
+    lg = P["logreg"]
+    p_l = C.rand_diana_default_p(q.omega(lg.d))
+    g_l = C.stepsize_rand_diana(lg.L_max, q.omega(lg.d), lg.n_workers, p_l)[1]
+    D = C.DCGDShift
+    return {
+        "fixed": (r, "dcgd", D(q, C.FixedShift()),
+                  C.stepsize_dcgd_fixed(r.L, r.L_max, om, n), 4000, 0, False),
+        "star": (r, "dcgd", D(q, C.StarShift()),
+                 C.stepsize_dcgd_star(r.L, r.L_max, om, 0.0, n), 6000, 0,
+                 True),
+        "diana": (r, "dcgd", D(q, C.DianaShift(alpha=alpha)), g_d, 8000, 0,
+                  False),
+        "diana_topk": (r, "dcgd", D(q, C.DianaShift(alpha=alpha_c,
+                                                    c=C.TopK(0.25))),
+                       g_dc, 8000, 0, False),
+        "rand_diana": (r, "dcgd", D(q, C.RandDianaShift(p=p)),
+                       C.stepsize_rand_diana(r.L_max, om, n, p)[1], 20000, 0,
+                       False),
+        "ef21_topk": (r, "dcgd", D(c, C.EF21Shift()), g_ef, 12000, 0, False),
+        "fixed_topk": (r, "dcgd", D(c, C.FixedShift()), g_ef, 12000, 0,
+                       False),
+        "efbv_topk": (r, "dcgd", D(c, C.EFBVShift(eta=eta_c, nu=nu_c)),
+                      g_bvc, 12000, 0, False),
+        "efbv_randk": (r, "dcgd", D(q, C.EFBVShift(eta=eta_u, nu=nu_u)),
+                       g_bvu, 12000, 0, False),
+        "gdci": (r, "gdci", C.GDCI(q5, gamma=gamma_g, eta=eta_g), None,
+                 20000, 0, False),
+        "vr_gdci": (r, "gdci", C.VRGDCI(q5, gamma=gamma_v, eta=eta_v,
+                                        alpha=a_v), None, 20000, 0, False),
+        "logreg_rand_diana": (lg, "dcgd", D(q, C.RandDianaShift(p=p_l)), g_l,
+                              15000, 9, False),
+    }
+
+
+def convex_claims(tr):
+    """Each theorem test's assertions on the card's traces ``tr``
+    (name -> Trace): name -> (holds, what).  Runs of 6000 and 3000 steps
+    in the tests are prefixes of the longer runs here (same seed, same
+    draws)."""
+    e = {k: t.rel_err for k, t in tr.items()}
+    med = float(np.median(e["fixed_topk"][-1000:]))
+    return {
+        "thm1 DCGD neighborhood": (1e-12 < e["fixed"][-500:].mean() < 1e-2,
+                                   e["fixed"][-500:].mean()),
+        "thm2 STAR exact": (e["star"][-1] < 1e-9, e["star"][-1]),
+        "thm2 STAR beats DCGD": (e["star"][2999] < 1e-2 * e["fixed"][2999],
+                                 (e["star"][2999], e["fixed"][2999])),
+        "thm3 DIANA exact": (e["diana"][-1] < 1e-6 and e["diana"][-1]
+                             < 0.05 * e["diana"][4000], e["diana"][-1]),
+        "thm3 DIANA + TopK exact": (
+            e["diana_topk"][-1] < 1e-6
+            and e["diana_topk"][-1] < 0.05 * e["diana_topk"][4000],
+            e["diana_topk"][-1]),
+        "thm4 Rand-DIANA exact": (
+            e["rand_diana"][-1] < 1e-6
+            and e["rand_diana"][-1] < 0.05 * e["rand_diana"][8000],
+            e["rand_diana"][-1]),
+        "EF21 + TopK exact, DCGD + TopK stalls": (
+            e["ef21_topk"][-1] < 1e-8
+            and e["ef21_topk"][-1] < 0.05 * e["ef21_topk"][6000]
+            and med > 1e-4 and e["ef21_topk"][-1] < 1e-3 * med,
+            (e["ef21_topk"][-1], med)),
+        "EF-BV + TopK exact": (
+            e["efbv_topk"][-1] < 1e-8
+            and e["efbv_topk"][-1] < 0.05 * e["efbv_topk"][6000],
+            e["efbv_topk"][-1]),
+        "EF-BV + RandK exact": (
+            tr["efbv_randk"].steps_to_tol(1e-6) < 4000
+            and e["efbv_randk"][-1] < 1e-10, e["efbv_randk"][-1]),
+        "thm5 GDCI neighborhood": (
+            1e-14 < e["gdci"][5800:6000].mean() < 1e-1,
+            e["gdci"][5800:6000].mean()),
+        "thm6 VR-GDCI exact, below GDCI": (
+            e["vr_gdci"][-1] < 1e-8 and e["vr_gdci"][-1] < e["gdci"][-1],
+            (e["vr_gdci"][-1], e["gdci"][-1])),
+        "Rand-DIANA on logreg": (e["logreg_rand_diana"][-1] < 1e-2,
+                                 e["logreg_rand_diana"][-1]),
+    }
+
+
+def phase_convex(card):
+    """Algorithm 1 and 2 on the card (``core.simulate``), every run of
+    ``convex_runs`` from the port's own draws (a ``GeneratorNoise`` on
+    the card, recorded), timed with CUDA events over the whole run; each
+    theorem test's conclusion checked on the card's traces; then every
+    run again on the CPU with the card's draws and x0 replayed, its bits
+    trace equal to the card's, element for element.  Returns the µs per
+    step by run."""
+    from repro_torch.comm.wire import GeneratorNoise
+    from repro_torch.core.simulate import default_x0, run_dcgd_shift, run_gdci
+    from repro_torch.data.problems import make_logreg, make_ridge
+
+    def problems(dev):
+        return {"ridge": make_ridge(m=100, d=80, n_workers=10, seed=0,
+                                    noise=10.0, device=dev),
+                "logreg": make_logreg(m=300, d=60, n_workers=10,
+                                      device=dev)}
+
+    def run(spec, noise, x0):
+        prob, runner, method, gamma, steps, seed, star = spec
+        if runner == "gdci":
+            return run_gdci(prob, method, steps, x0=x0, noise=noise)
+        return run_dcgd_shift(prob, method, gamma, steps, x0=x0,
+                              use_star=star, noise=noise)
+
+    on_card, on_cpu = convex_runs(problems("cuda")), convex_runs(
+        problems("cpu"))
+    traces, us, worst = {}, {}, {}
+    for name, spec in on_card.items():
+        prob, steps, seed = spec[0], spec[4], spec[5]
+        noise = RecordingNoise(GeneratorNoise(seed, "cuda"))
+        x0 = default_x0(prob, seed)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        tr = run(spec, noise, x0)          # reads the traces back: syncs
+        end.record()
+        torch.cuda.synchronize()
+        us[name] = start.elapsed_time(end) * 1e3 / steps
+        check(np.isfinite(tr.rel_err).all(), f"convex {name}: rel_err not "
+                                             f"finite")
+        replay = noise.replay("cpu")
+        tr_cpu = run(on_cpu[name], replay, x0.cpu())
+        check(replay.at == len(replay.draws),
+              f"convex {name}: the CPU run used {replay.at} of "
+              f"{len(replay.draws)} draws")
+        check(np.array_equal(tr.bits, tr_cpu.bits),
+              f"convex {name}: bits trace differs from the CPU's")
+        hi = tr_cpu.rel_err > 1e-9
+        worst[name] = float((np.abs(tr.rel_err[hi] - tr_cpu.rel_err[hi])
+                             / tr_cpu.rel_err[hi]).max(initial=0.0))
+        traces[name] = tr
+        log(f"convex {name} ({prob.name}, {steps} steps): final rel_err "
+            f"{tr.rel_err[-1]:.4e}, bits {tr.bits[-1]:.0f} (equal to the "
+            f"CPU replay's, every step), {us[name]:.1f} us/step on the card; "
+            f"rel_err vs CPU replay: largest relative difference above "
+            f"1e-9 {worst[name]:.2e}  [{card}]")
+    for claim, (ok, value) in convex_claims(traces).items():
+        check(bool(ok), f"convex: {claim} does not hold: {value}")
+        log(f"convex claim holds: {claim} ({value})")
+    return us
 
 
 def main(argv=None):
@@ -1409,21 +1712,29 @@ def main(argv=None):
     phase_build()
     kernels = (phase_kernels(qwen, also=(rwkv,)) + [phase_ring_kernels(qwen)]
                + phase_wkv6_kernels(rwkv) + phase_natural_topk_kernels(qwen))
-    paths = [(qwen, "dense", "q8_block"), (qwen, "q8_ring_fused", "q8_block"),
-             (rwkv, "dense", "q8_block"), (qwen, "dense", "natural"),
-             (qwen, "ef21", "topk")]
-    for cfg, mode, codec in paths:
-        phase_cross_check(cfg.name, mode, codec)
+    paths = [(qwen, "dense", "q8_block", "diana"),
+             (qwen, "q8_ring_fused", "q8_block", "diana"),
+             (rwkv, "dense", "q8_block", "diana"),
+             (qwen, "dense", "natural", "diana"),
+             (qwen, "ef21", "topk", "diana"),
+             (qwen, "dense", "randk", "rand_diana")]
+    for cfg, mode, codec, rule in paths[:5] + [(qwen, "dense", "randk",
+                                                "vr_gdci")]:
+        phase_cross_check(cfg.name, mode, codec, rule)
     by_path = {}
-    for cfg, mode, codec in paths:
-        by_path[f"{cfg.name} {mode} {codec}"], kept = phase_main_path(
-            cfg, mode, codec, keep=codec == "natural")
+    for cfg, mode, codec, rule in paths:
+        name = f"{cfg.name} {mode} {codec}" + (
+            "" if rule == "diana" else f" {rule}")
+        by_path[name], kept = phase_main_path(
+            cfg, mode, codec, keep=codec == "natural", rule=rule)
         if kept is not None:
             entry_inputs = kept
         del kept
         torch.cuda.empty_cache()
     by_path["qwen3-0.6b entry points"] = phase_entry_points(*entry_inputs)
     del entry_inputs
+    torch.cuda.empty_cache()
+    phase_convex(card)
     # each kernel's launches on the path of the slice that ported it: the
     # q8 kernels on the ring path (which runs all three), WKV6 on RWKV-6's,
     # the natural and top-k kernels on their entry points

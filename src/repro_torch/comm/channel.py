@@ -2,6 +2,10 @@
 port of the reference's ``repro/comm/channel.py`` for the modes the
 port runs.
 
+``Channel.uplink`` is the W-stacked encode and decode of a tree with its
+structural wire bits (DCGD-STAR's and GDCI's messages);
+``Channel.shift_round`` schedules one shift-rule round.
+
 ``SimChannel`` is the parameter server (exact worker mean);
 ``MeshChannel`` is the production aggregation of the stacked-worker
 step over a ``launch.mesh.HostMesh``, in the ``dense`` (exact mean),
@@ -19,8 +23,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.comm.wire import LeafNoise, encode_decode_workers
+from repro_torch.core.compressors import f32_bits
 from repro_torch.dist.collectives import (
     AGGREGATION_MODES,
+    WorkerMean,
     compressed_tree_mean,
     dense_mean,
 )
@@ -56,8 +63,29 @@ def _check_ported(mode: str):
 class Channel:
     """Transport for compressed messages between workers and master."""
 
-    def reduce_mean(self, noise, wtree: Tree) -> Tree:
+    def uplink(self, q, noise, wtree: Tree, part: Optional[str] = None):
+        """Encode+decode each worker's slice of a W-stacked tree with
+        codec ``q``, each leaf's draws bound to its global position (and
+        to ``part``, for the second uplink of a two-part round).  Returns
+        ``(decoded W-stacked messages, total wire bits)``, the bits the
+        structural ``q.wire_bits`` of the payloads, summed in f32 leaf by
+        leaf."""
+        out = {}
+        bits = f32_bits()
+        for i, (k, leaf) in enumerate(wtree.items()):
+            payloads, out[k] = encode_decode_workers(
+                q, LeafNoise(noise, i, part), leaf)
+            bits = bits + f32_bits(q.wire_bits(payloads))
+        return out, bits
+
+    def reduce(self, noise, wtree: Tree) -> Dict[str, WorkerMean]:
+        """Master-side aggregation: the worker mean of each leaf, as a
+        ``WorkerMean`` (what the rules' ``apply`` consumes)."""
         raise NotImplementedError
+
+    def reduce_mean(self, noise, wtree: Tree) -> Tree:
+        """``reduce``, each mean materialized."""
+        return {k: m.value() for k, m in self.reduce(noise, wtree).items()}
 
     def shift_round(self, rule, q, noise, wgrads, h, h_bar):
         """One shift-rule round: the rule's whole-tree message, its aux
@@ -65,7 +93,7 @@ class Channel:
         Returns ``(g_bar, h_new, h_bar_new, bits)``."""
         m, bits = rule.message(q, noise, wgrads, h)
         aux, extra = rule.aux(noise, wgrads, h)
-        m_bar = self.reduce_mean(noise, m)
+        m_bar = self.reduce(noise, m)
         g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar, aux)
         return g_bar, h_new, hb_new, bits + extra
 
@@ -75,8 +103,8 @@ class SimChannel(Channel):
     """Parameter server: the master sees every decoded message exactly,
     so aggregation is the exact mean over the worker axis."""
 
-    def reduce_mean(self, noise, wtree):
-        return dense_mean(wtree)
+    def reduce(self, noise, wtree):
+        return {k: WorkerMean.of_rows(a) for k, a in wtree.items()}
 
 
 @dataclass(frozen=True, eq=False)
@@ -95,9 +123,12 @@ class MeshChannel(Channel):
             raise ValueError(f"{self.mode!r} is not an aggregation mode; "
                              f"have {AGGREGATION_MODES}")
 
-    def reduce_mean(self, noise, wtree):
-        return compressed_tree_mean(wtree, self.mode, noise, self.mesh,
-                                    q8_block_rows=self.q8_block_rows)
+    def reduce(self, noise, wtree):
+        if self.mode == "dense":
+            return {k: WorkerMean.of_rows(a) for k, a in wtree.items()}
+        means = compressed_tree_mean(wtree, self.mode, noise, self.mesh,
+                                     q8_block_rows=self.q8_block_rows)
+        return {k: WorkerMean(value=v) for k, v in means.items()}
 
 
 def aggregation_mode_of(mode_or_cfg) -> str:

@@ -1,14 +1,27 @@
 """Per-worker encode plumbing and the round's noise source.
 
 The reference derives every random bit of a round from one PRNG key:
-``leaf_key`` folds the leaf's global tree position into it and
-``worker_keys`` splits that per worker.  Stochastic codecs here take
-precomputed uniforms instead (the kernels do), so the port draws them
-from one noise source, in a fixed order:
+``leaf_key`` folds the leaf's global tree position into it, a two-part
+message splits it once more per part, and ``worker_keys`` splits it per
+worker -- or hands every worker the same key when the codec declares a
+shared pattern or is deterministic.  The port's codecs take their
+randomness from a draw object instead (``WorkerNoise``), and the draws
+come from one noise source in a fixed order:
 
-1. the messages: ``uniform(leaf, worker, shape)``, leaf order first (the
-   global leaf position in the tree), then worker;
-2. then, when the round aggregates through a ring
+1. the messages, one uplink after another (StarShift sends Q's uplink,
+   then C's); within an uplink leaf by leaf (the leaf's global position
+   in the tree), within a leaf part by part (generalized DIANA's C,
+   then its Q), within a part worker by worker.  A draw is either
+   ``uniform(leaf, worker, shape)`` (f32 in [0, 1)) or
+   ``permutation(leaf, worker, d)`` (a random permutation of
+   ``range(d)``, int64: RandK's index draw).  A codec with a shared
+   pattern draws once, for every worker, with ``worker=None``; a
+   deterministic codec draws nothing.  Every message draw carries its
+   part as the keyword ``part``: ``"c"`` or ``"q"`` for the parts of a
+   two-part message, None for a one-part one.
+2. then the round's tree-level extras: ``aux_uniform(shape)``
+   (Rand-DIANA's per-worker refresh draw, one uniform a worker);
+3. then, when the round aggregates through a ring
    (``dist.collectives``), the ring's encodes: ``ring_uniform(leaf, hop,
    shape)``, leaf order first, then hop -- hops ``0 .. n-2`` are the
    reduce-scatter's, hop ``n-1`` is the all-gather's one encode.  Every
@@ -16,16 +29,17 @@ from one noise source, in a fixed order:
    key enters its ``shard_map`` replicated.
 
 ``GeneratorNoise`` is the default source: a ``torch.Generator`` on the
-run's device, seeded from the run seed.  Any object with the same two
-methods can stand in for it -- the parity tests replay the uniforms the
-reference draws along its own key chain, which is how the port's round
-is held bit for bit against the reference's.
+run's device, seeded from the run seed, every kind of draw taken from
+its one stream in the order above.  Any object with the same methods
+can stand in for it -- the parity tests replay the draws the reference
+makes along its own key chain, which is how the port's round is held
+bit for bit against the reference's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -33,38 +47,107 @@ from repro_torch.core.compressors import ShapeDtype
 
 
 class GeneratorNoise:
-    """Uniform draws from a ``torch.Generator`` on ``device``."""
+    """Draws from a ``torch.Generator`` on ``device``; successive calls
+    continue one stream, so the draws depend on the order of the calls,
+    which the round fixes (module docstring)."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-    def uniform(self, leaf: int, worker: int, shape) -> torch.Tensor:
+    def uniform(self, leaf: int, worker: Optional[int], shape,
+                part: Optional[str] = None) -> torch.Tensor:
         """f32 uniforms in [0, 1) for ``worker``'s encode of leaf
-        ``leaf``; successive calls continue one stream, so the draws
-        depend on the order of the calls, which the round fixes."""
+        ``leaf`` (``worker=None``: one draw for every worker)."""
         return torch.rand(shape, generator=self.generator, device=self.device,
                           dtype=torch.float32)
 
+    def permutation(self, leaf: int, worker: Optional[int], d: int,
+                    part: Optional[str] = None) -> torch.Tensor:
+        """A random permutation of ``range(d)`` (int64) for ``worker``'s
+        encode of leaf ``leaf``."""
+        return torch.randperm(d, generator=self.generator, device=self.device)
+
+    def aux_uniform(self, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for the round's tree-level extras."""
+        return self.uniform(-1, None, shape)
+
     def ring_uniform(self, leaf: int, hop: int, shape) -> torch.Tensor:
         """f32 uniforms in [0, 1) for ring hop ``hop`` of leaf ``leaf``,
-        shared by every ring position; the same stream as ``uniform``."""
+        shared by every ring position."""
         return self.uniform(leaf, hop, shape)
+
+
+@dataclass(frozen=True)
+class WorkerNoise:
+    """One worker's draws for one leaf and part: ``rand(shape)`` gives
+    uniforms, ``rand.permutation(d)`` an index draw (``worker=None``:
+    the one draw every worker shares)."""
+
+    source: Any
+    leaf: int
+    worker: Optional[int]
+    part: Optional[str] = None
+
+    def __call__(self, shape) -> torch.Tensor:
+        return self.source.uniform(self.leaf, self.worker, shape,
+                                   part=self.part)
+
+    def permutation(self, d: int) -> torch.Tensor:
+        return self.source.permutation(self.leaf, self.worker, d,
+                                       part=self.part)
+
+
+class _SharedDraw:
+    """The draws of a shared-pattern codec: each kind is drawn once, at
+    its first call, and handed to every worker (the reference's
+    ``worker_keys`` broadcasts one key)."""
+
+    def __init__(self, noise: WorkerNoise):
+        self.noise = noise
+        self.drawn = {}
+
+    def _once(self, what, fn):
+        if what not in self.drawn:
+            self.drawn[what] = fn()
+        return self.drawn[what]
+
+    def __call__(self, shape):
+        return self._once(("u", tuple(shape)), lambda: self.noise(shape))
+
+    def permutation(self, d: int):
+        return self._once(("p", d), lambda: self.noise.permutation(d))
 
 
 @dataclass(frozen=True)
 class LeafNoise:
     """THE per-leaf noise derivation of the wire layer (the port of
     ``leaf_key``): the noise source bound to one leaf's GLOBAL position
-    in the tree."""
+    in the tree, and to a message part (``part``; None for one-part
+    messages)."""
 
     source: Any
     leaf: int
+    part: Optional[str] = None
 
-    def worker(self, j: int):
-        """The ``rand(shape)`` draw function of worker ``j``."""
-        return lambda shape: self.source.uniform(self.leaf, j, shape)
+    def worker(self, j: Optional[int]) -> WorkerNoise:
+        """The draw object of worker ``j`` (None: every worker's)."""
+        return WorkerNoise(self.source, self.leaf, j, self.part)
+
+    def with_part(self, part: str) -> "LeafNoise":
+        return LeafNoise(self.source, self.leaf, part)
+
+
+def worker_draws(codec, noise: LeafNoise, w: int) -> list:
+    """The draw objects of ``w`` workers for one leaf, the port of
+    ``worker_keys``: a codec with a shared pattern, or a deterministic
+    one, gets one draw (``worker=None``) for every worker; any other
+    codec one per worker."""
+    if getattr(codec, "shared_pattern", False) or not codec.stochastic:
+        shared = _SharedDraw(noise.worker(None))
+        return [shared] * w
+    return [noise.worker(j) for j in range(w)]
 
 
 def encode_decode_workers(codec, noise: LeafNoise, leaf: torch.Tensor
@@ -72,15 +155,21 @@ def encode_decode_workers(codec, noise: LeafNoise, leaf: torch.Tensor
     """One uplink leaf: encode then decode each worker row of a
     worker-stacked ``(W, ...)`` leaf.
 
-    Returns ``(per-worker payloads, decoded (W, ...) messages)``.  The
-    reference vmaps the codec over the worker axis; here the workers run
-    one after another and write into one stacked output.
+    Returns ``(payloads, decoded (W, ...) messages)``; ``wire_bits`` of
+    the payloads is the leaf's total.  The reference vmaps the codec over
+    the worker axis.  Here a codec with ``encode_decode_stacked`` takes
+    all the rows in one call; any other runs the workers one after
+    another into one stacked output.
     """
+    draws = worker_draws(codec, noise, leaf.shape[0])
+    if hasattr(codec, "encode_decode_stacked"):
+        payload, out = codec.encode_decode_stacked(draws, leaf)
+        return [payload], out
     like = ShapeDtype(tuple(leaf.shape[1:]), leaf.dtype, leaf.device)
     out = torch.empty_like(leaf)
     payloads = []
-    for j in range(leaf.shape[0]):
-        payload, meta = codec.encode(noise.worker(j), leaf[j])
+    for j, rand in enumerate(draws):
+        payload, meta = codec.encode(rand, leaf[j])
         out[j] = codec.decode(payload, meta, like)
         payloads.append(payload)
     return payloads, out

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -137,26 +138,39 @@ class CompressionConfig:
 
         return aggregation_mode_of(self.comm_mode)
 
-    def make(self):
-        """Build the ``(compressor, rule)`` pair this config describes."""
+    def make(self, learning_rate: Optional[float] = None):
+        """Build the ``(compressor, rule)`` pair this config describes.
+        ``vr_gdci`` (Algorithm 2, compressed iterates) needs the outer
+        ``learning_rate`` as its gradient-mapping gamma; the other rules
+        ignore it."""
         from repro_torch.core.compressors import make_compressor
         from repro_torch.core.shift_rules import make_shift_rule
 
         q = make_compressor(self.compressor, **dict(self.compressor_kwargs))
         rule_name = self.effective_shift_rule
         if rule_name == "vr_gdci":
-            raise NotImplementedError(
-                "shift rule 'vr_gdci' (Algorithm 2, core/iterate_comp.py) is "
-                "not ported yet: ROADMAP queue 1, item 3 (convex Algorithm 1)")
+            from repro_torch.core.iterate_comp import VRGDCI
+
+            if learning_rate is None:
+                raise ValueError(
+                    "shift_rule 'vr_gdci' needs learning_rate (its "
+                    "gradient-mapping gamma); pass make(learning_rate=...)"
+                )
+            return q, VRGDCI(q=q, gamma=learning_rate, eta=self.gdci_eta,
+                             alpha=self.shift_alpha)
         rule_kwargs = {
             "fixed": {},
             "dcgd": {},
             "diana": dict(alpha=self.shift_alpha),
+            "rand_diana": dict(p=self.shift_p),
             "ef21": {},
             "efbv": dict(eta=self.efbv_eta, nu=self.efbv_nu),
         }
         if rule_name not in rule_kwargs:
-            return q, make_shift_rule(rule_name)  # raises, naming the queue
+            raise ValueError(
+                f"unknown shift rule {rule_name!r}; have trainer rules "
+                f"{tuple(sorted(rule_kwargs)) + ('vr_gdci',)}"
+            )
         return q, make_shift_rule(rule_name, **rule_kwargs[rule_name])
 
 

@@ -6,6 +6,7 @@ function:
 
   ``encode(rand, x) -> (payload, meta)``
         ``rand(shape)`` returns f32 uniforms in [0, 1) on ``x``'s device
+        and ``rand.permutation(d)`` a random permutation of ``range(d)``
         (see ``repro_torch.comm.wire`` for where they come from);
         deterministic codecs never call it.  ``payload`` is a dict of
         tensors with honest wire dtypes, ``meta`` side information the
@@ -26,8 +27,8 @@ function:
   ``omega(d)`` / ``delta(d)``
         variance constants of the classes U(omega) and B(delta).
 
-Codecs still to be ported (RandK, BernoulliP, NaturalDithering,
-TernGrad, ScaledSign, Induced) raise ``NotImplementedError`` from
+Codecs still to be ported (BernoulliP, NaturalDithering, TernGrad,
+ScaledSign, Induced) raise ``NotImplementedError`` from
 ``make_compressor``.
 """
 
@@ -196,6 +197,10 @@ class Zero(Compressor):
     def decode(self, payload, meta, like):
         return torch.zeros(like.shape, dtype=like.dtype, device=like.device)
 
+    def encode_decode_stacked(self, draws, x):
+        """Every worker row at once: an empty payload, zeros."""
+        return {}, torch.zeros_like(x)
+
     def delta(self, d):
         return 0.0
 
@@ -302,6 +307,18 @@ def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return idx[order]
 
 
+def _row_cumsum(mask: torch.Tensor) -> torch.Tensor:
+    """Running count of True along each row of a 2-D bool ``mask``,
+    taken as ONE scan of the flattened mask less the count before each
+    row: on the GPU a scan along the rows runs a block a row, far slower
+    for a few long rows."""
+    flat = torch.cumsum(mask.reshape(-1), 0,
+                        dtype=torch.int32 if mask.numel() < 2**31
+                        else torch.int64).reshape(mask.shape)
+    before = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    return flat - before[:, None]
+
+
 @dataclass(frozen=True)
 class TopK(Contractive):
     """Greedy sparsification: keep the K = round(q*d) largest-magnitude
@@ -328,12 +345,93 @@ class TopK(Contractive):
         out[payload["indices"].data.long()] = payload["values"].to(like.dtype)
         return out.reshape(like.shape)
 
+    def encode_decode_stacked(self, draws, x):
+        """Every worker row of the W-stacked ``x`` at once:
+        ``(stacked payload, decoded (W, ...))``, bit for bit the rows'
+        ``encode``/``decode`` one by one (the same k-th magnitude and tie
+        rule as ``topk_indices``, row by row); the payload's entries come
+        in index order."""
+        w = x.shape[0]
+        xf = x.reshape(w, -1)
+        d = xf.shape[1]
+        k = _k_of(self.q, d)
+        key = xf.to(torch.float32).abs().view(torch.int32)
+        kth = torch.topk(key, k, dim=1, sorted=False).values.amin(
+            dim=1, keepdim=True)
+        above = key > kth
+        at = key == kth
+        need = k - above.sum(dim=1, keepdim=True, dtype=torch.int64)
+        take = above.logical_or_(at.logical_and_(_row_cumsum(at) <= need))
+        del key, at
+        idx = torch.nonzero(take)[:, 1].reshape(w, k).to(torch.int32)
+        payload = {"values": xf[take].reshape(w, k),
+                   "indices": PackedBits(idx, _index_bits(d))}
+        out = torch.where(take, xf, torch.zeros((), dtype=xf.dtype,
+                                                device=xf.device))
+        return payload, out.reshape(x.shape)
+
     def delta(self, d):
         return _k_of(self.q, d) / d
 
     @property
     def stochastic(self):
         return False
+
+
+@dataclass(frozen=True)
+class RandK(Unbiased):
+    """Random sparsification (eq. 2): keep a uniformly random K-subset,
+    scale by d/K.  RandK(q) keeps K = round(q*d) coords; omega = d/K - 1.
+
+    The K-subset is the prefix of a random permutation
+    (``rand.permutation(d)``), so exactly K coordinates survive.  Payload:
+    K values (input dtype, times f32(d/K)) + K indices packed to
+    ceil(log2 d) bits (int32 container).  With ``shared_pattern`` every
+    worker draws the same permutation (``comm.wire.worker_draws``): the
+    indices move to ``meta`` and are not charged to the wire.  Decode
+    scatters the values into zeros.  Plain PyTorch: the reference has no
+    kernel for it.
+    """
+
+    q: float = 0.1
+    shared_pattern: bool = False
+
+    def _pack(self, values, idx, d):
+        if self.shared_pattern:
+            return {"values": values}, {"indices": idx}
+        return ({"values": values,
+                 "indices": PackedBits(idx, _index_bits(d))}, {})
+
+    def encode(self, rand, x):
+        xf = x.reshape(-1)
+        d = xf.numel()
+        idx = rand.permutation(d)[:_k_of(self.q, d)].to(torch.int32)
+        return self._pack(xf[idx.long()] * (d / idx.numel()), idx, d)
+
+    def decode(self, payload, meta, like):
+        idx = (meta["indices"] if self.shared_pattern
+               else payload["indices"].data)
+        out = torch.zeros(_numel(like.shape), dtype=like.dtype,
+                          device=like.device)
+        out[idx.long()] = payload["values"].to(like.dtype)
+        return out.reshape(like.shape)
+
+    def encode_decode_stacked(self, draws, x):
+        """Every worker row of the W-stacked ``x`` at once, ``draws[j]``
+        worker j's draw object: ``(stacked payload, decoded (W, ...))``,
+        bit for bit the rows' ``encode``/``decode`` one by one."""
+        w = x.shape[0]
+        xf = x.reshape(w, -1)
+        d = xf.shape[1]
+        k = _k_of(self.q, d)
+        idx = torch.stack([r.permutation(d) for r in draws])[:, :k]
+        values = torch.gather(xf, 1, idx) * (d / k)
+        out = torch.zeros_like(xf).scatter_(1, idx, values)
+        return self._pack(values, idx.to(torch.int32), d)[0], out.reshape(
+            x.shape)
+
+    def omega(self, d):
+        return d / _k_of(self.q, d) - 1.0
 
 
 def _fused_q8(**kw) -> Compressor:
@@ -347,12 +445,13 @@ def _fused_q8(**kw) -> Compressor:
 _PORTED = {
     "identity": Identity,
     "zero": Zero,
+    "randk": RandK,
     "int8": Int8Stochastic,
     "q8_block": _fused_q8,
     "natural": NaturalCompression,
     "topk": TopK,
 }
-_NOT_PORTED = ("randk", "bernoulli", "natural_dithering", "terngrad",
+_NOT_PORTED = ("bernoulli", "natural_dithering", "terngrad",
                "sign", "induced", "induced_topk_randk",
                "induced_topk_natural")
 

@@ -15,14 +15,23 @@ leading ``(W,)`` axis on every leaf.  The phases are the reference's::
     message(q, noise, wgrads, h) -> (m, bits)
     aux(noise, wgrads, h)        -> (aux, extra_bits)
     apply(wgrads, m, m_bar, h, h_bar, aux)
+                                 ``m_bar``: {path: WorkerMean}, the
+                                 aggregated message as the reference's
+                                 jitted round folds it (see
+                                 ``dist.collectives.WorkerMean``)
                                  -> (g_bar, h_new, h_bar_new)
     round(q, noise, wgrads, h, h_bar, channel)
                                  -> (g_bar, h_new, h_bar_new, bits)
 
-``bits`` is an f32 0-d CPU tensor accumulated leaf by leaf in the
-reference's order, so it equals the reference's f32 counter exactly.
-Rules still to be ported (star, rand_diana) raise
-``NotImplementedError`` from ``make_shift_rule``.
+``bits`` is an f32 0-d tensor accumulated leaf by leaf in the
+reference's order, so it equals the reference's f32 counter exactly: on
+the CPU when it is structural (computed from shapes), on the draws'
+device when it depends on them (Rand-DIANA's refreshes).
+
+``StarShift`` (DCGD-STAR) keeps the state ``{"h", "star"}`` and runs its
+own round, two uplinks (Q's, then C's), on the parameter server only.
+Two-part messages tag their draws with the part (``comm.wire``):
+generalized DIANA's ``"c"`` and ``"q"``, STAR's ``"q"`` and ``"c"``.
 """
 
 from __future__ import annotations
@@ -34,16 +43,39 @@ import torch
 
 from repro_torch.comm.channel import Channel, SimChannel
 from repro_torch.comm.wire import LeafNoise, encode_decode_workers
-from repro_torch.core.compressors import Compressor, f32_bits
+from repro_torch.core.compressors import Compressor, Zero, f32_bits
+from repro_torch.dist.collectives import WorkerMean
 
 Tree = Dict[str, torch.Tensor]
-
-#: ROADMAP item that ports the remaining rules
-_RULES_ITEM = "ROADMAP queue 1, item 3 (convex Algorithm 1)"
 
 
 def _chan(channel: Optional[Channel]) -> Channel:
     return channel if channel is not None else SimChannel()
+
+
+def residual_sq_diag(wgrads: Tree, h: Optional[Tree]):
+    """The paper's headline probe, as f32 0-d tensors: ``grad_sq`` =
+    ``mean_i ||g_i||^2`` and ``shift_residual_sq`` = ``mean_i ||g_i -
+    h_i||^2`` over the worker axis; with ``h is None`` (stateless rules)
+    the residual is the gradient norm itself."""
+    w = next(iter(wgrads.values())).shape[0]
+
+    def _sq(leaves):
+        return sum(torch.sum(torch.square(a.to(torch.float32)))
+                   for a in leaves)
+
+    grad_sq = _sq(wgrads.values()) / w
+    if h is None:
+        return {"grad_sq": grad_sq, "shift_residual_sq": grad_sq}
+    resid_sq = _sq(g - h[k] for k, g in wgrads.items()) / w
+    return {"grad_sq": grad_sq, "shift_residual_sq": resid_sq}
+
+
+def dense_message_bits(wgrads_like: Tree) -> float:
+    """Structural wire cost of one worker's uncompressed message: each
+    W-stacked leaf's inner numel at its dtype's width, summed."""
+    return float(sum(a[0].numel() * a.element_size() * 8
+                     for a in wgrads_like.values()))
 
 
 @dataclass(frozen=True)
@@ -107,38 +139,111 @@ class FixedShift(ShiftRule):
     stateful: bool = field(default=False, init=False, repr=False)
 
     def apply(self, wgrads, m, m_bar, h, h_bar, aux):
-        g_bar = m_bar if h_bar is None else {
-            k: h_bar[k] + mb for k, mb in m_bar.items()
-        }
-        return g_bar, h, h_bar
+        if h_bar is None:
+            return {k: mb.value() for k, mb in m_bar.items()}, h, h_bar
+        return {k: mb.axpy(h_bar[k]) for k, mb in m_bar.items()}, h, h_bar
+
+
+@dataclass(frozen=True)
+class StarShift(ShiftRule):
+    """DCGD-STAR (eq. 8): oracle shifts around grad_i(x*), optionally
+    compressed by a contractive C.  Theorem 2: exact linear convergence.
+
+    Needs the optimum, so it is the theoretical reference point only.
+    Its state is ``{"h", "star"}`` (``init_with_star``) and its round
+    sends two uplinks, Q's then C's, so it overrides ``round`` wholesale;
+    it runs on the parameter server (``SimChannel``) only."""
+
+    c: Compressor = field(default_factory=Zero)
+
+    def init_with_star(self, wgrads_star: Tree):
+        """State carries the oracle gradients; h starts there too."""
+        return {"h": dict(wgrads_star), "star": wgrads_star}
+
+    def init(self, params, w):
+        raise ValueError("StarShift requires init_with_star(grads_at_optimum)")
+
+    def init_bar(self, params):
+        return None
+
+    def round(self, q, noise, wgrads, state, h_bar, channel=None):
+        ch = _chan(channel)
+        h, star = state["h"], state["star"]
+        m, bits_q = ch.uplink(q, noise, {k: g - h[k]
+                                         for k, g in wgrads.items()}, "q")
+        g_bar = ch.reduce_mean(noise, {k: h[k] + mm for k, mm in m.items()})
+        # h_i^{k+1} = g*_i + C(grad_i - g*_i)
+        chm, bits_c = ch.uplink(self.c, noise, {k: g - star[k] for k, g
+                                                in wgrads.items()}, "c")
+        h_new = {k: star[k] + cc for k, cc in chm.items()}
+        return g_bar, {"h": h_new, "star": star}, None, bits_q + bits_c
 
 
 @dataclass(frozen=True)
 class DianaShift(ShiftRule):
-    """Classic DIANA (eq. 11): h_i += alpha * Q(grad_i - h_i).  The
-    reference's generalized form (eq. 10) with a compressor C other than
-    Zero is not ported yet (ROADMAP queue 1, item 3).  The same message
-    feeds the estimator and the shift."""
+    """Generalized DIANA (eq. 10): h_i += alpha * Q_ind(grad_i - h_i) with
+    Q_ind(x) = C(x) + Q(x - C(x)) the induced compressor; C = Zero (the
+    default) is classic DIANA (eq. 11).  The same message feeds the
+    estimator and the shift; its wire bits are C's plus Q's."""
 
     alpha: float = 0.1
+    c: Compressor = field(default_factory=Zero)
 
     def message_leaf(self, q, noise, g, h):
-        # the reference's two-part message C(x) + Q(x - C(x)) with
-        # C = Zero: C decodes to exact zeros and sends an empty payload,
-        # so x - C(x) and C(x) + Q(...) are the identity bit for bit and
-        # the zero tensors the reference builds are skipped
         diff = g if h is None else g - h
-        payloads, qm = encode_decode_workers(q, noise, diff)
-        return qm, 0.0 + q.wire_bits(payloads)
+        qnoise = noise.with_part("q")
+        if isinstance(self.c, Zero):
+            # C decodes to exact zeros and sends an empty payload, so
+            # x - C(x) and C(x) + Q(...) are the identity bit for bit and
+            # the zero tensors the reference builds are skipped
+            payloads, qm = encode_decode_workers(q, qnoise, diff)
+            return qm, 0.0 + q.wire_bits(payloads)
+        cpay, cm = encode_decode_workers(self.c, noise.with_part("c"), diff)
+        qpay, qm = encode_decode_workers(q, qnoise, diff - cm)
+        return cm.add_(qm), self.c.wire_bits(cpay) + q.wire_bits(qpay)
 
     def apply(self, wgrads, m, m_bar, h, h_bar, aux):
         # h and h_bar are updated IN PLACE (the reference rebinds them):
         # at full size a second copy of the (W, ...) shifts would not fit
         a = self.alpha
-        g_bar = {k: h_bar[k] + mb for k, mb in m_bar.items()}
+        g_bar = {k: mb.axpy(h_bar[k]) for k, mb in m_bar.items()}
         for k in h:
             h[k].add_(m[k], alpha=a)
-            h_bar[k].add_(m_bar[k], alpha=a)
+            m_bar[k].axpy_(h_bar[k], a)
+        return g_bar, h, h_bar
+
+
+@dataclass(frozen=True)
+class RandDianaShift(ShiftRule):
+    """Rand-DIANA (eq. 12): the shift is the gradient at a lazily
+    refreshed point, h_i = grad_i(w_i), with w_i reset to x^k with
+    probability p each round.  The refresh sends the dense gradient, so
+    each refreshing worker is charged one dense message
+    (``dense_message_bits``).  Theorem 4: max{kappa(1 + omega/n), 1/p}.
+
+    ``aux`` draws one uniform a worker (``aux_uniform``); a worker
+    refreshes where it is below ``p``, the reference's Bernoulli draw."""
+
+    p: float = 0.1
+
+    def aux(self, noise, wgrads, h):
+        g = next(iter(wgrads.values()))
+        refresh = noise.aux_uniform((g.shape[0],)) < self.p
+        extra = (refresh.sum(dtype=torch.float32)
+                 * f32_bits(dense_message_bits(wgrads)).to(refresh.device))
+        return refresh, extra
+
+    def apply(self, wgrads, m, m_bar, h, h_bar, refresh):
+        # h_new = where(refresh, g, h) and h_bar += mean_w(h_new - h), one
+        # leaf at a time: the difference is taken before h is updated IN
+        # PLACE, so one (W, ...) temporary is alive at a time
+        g_bar = {k: mb.axpy(h_bar[k]) for k, mb in m_bar.items()}
+        for k, g in wgrads.items():
+            mask = refresh.reshape((-1,) + (1,) * (g.dim() - 1))
+            diff = torch.where(mask, g, h[k]).sub_(h[k])
+            WorkerMean.of_rows(diff).axpy_(h_bar[k])
+            del diff
+            torch.where(mask, g, h[k], out=h[k])
         return g_bar, h, h_bar
 
 
@@ -148,10 +253,10 @@ def _integrate(m, m_bar, h, h_bar, eta: float, nu: float):
     m_bar``, IN PLACE (the reference rebinds them; at full size a second
     copy of the (W, ...) shifts would not fit).  ``add`` with ``alpha``
     rounds once, as XLA contracts the reference's ``a + c * b``."""
-    g_bar = {k: torch.add(h_bar[k], mb, alpha=nu) for k, mb in m_bar.items()}
+    g_bar = {k: mb.axpy(h_bar[k], nu) for k, mb in m_bar.items()}
     for k in h:
         h[k].add_(m[k], alpha=eta)
-        h_bar[k].add_(m_bar[k], alpha=eta)
+        m_bar[k].axpy_(h_bar[k], eta)
     return g_bar, h, h_bar
 
 
@@ -196,14 +301,12 @@ def make_shift_rule(name: str, **kw) -> ShiftRule:
     table = {
         "fixed": FixedShift,
         "dcgd": FixedShift,
+        "star": StarShift,
         "diana": DianaShift,
+        "rand_diana": RandDianaShift,
         "ef21": EF21Shift,
         "efbv": EFBVShift,
     }
-    if name in SHIFT_RULES and name not in table:
-        raise NotImplementedError(
-            f"shift rule {name!r} is not ported yet: {_RULES_ITEM}"
-        )
     if name not in table:
         raise ValueError(
             f"unknown shift rule {name!r}; have shift rules {SHIFT_RULES}"

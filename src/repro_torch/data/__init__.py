@@ -1,1 +1,2 @@
-"""Synthetic token streams (``tokens``)."""
+"""Synthetic token streams (``tokens``) and the convex problems of the
+paper's experiments (``problems``)."""

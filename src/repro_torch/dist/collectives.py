@@ -33,6 +33,7 @@ Rand-K mean (ROADMAP queue 1, item 5).
 from __future__ import annotations
 
 import math
+import struct
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -54,6 +55,61 @@ _ITEM = "ROADMAP queue 1, item 5 (collectives)"
 #: aggregation formats of the reference's MeshChannel (ef21/efbv and
 #: disabled configs map to dense, the overlap modes to q8_ring_fused)
 AGGREGATION_MODES = ("dense", "randk_shared", "q8_ring", "q8_ring_fused")
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest f32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+class WorkerMean:
+    """The mean of W-stacked rows over the worker axis, as the
+    reference's jitted round consumes it.
+
+    A dense mean is kept as its f32 sum (``total``, XLA's order:
+    ``_local_sum``) and W.  Under jit XLA folds the mean's scale f32(1/W)
+    into the op that consumes it: ``c * mean`` becomes the sum times the
+    constant f32(c) * f32(1/W), and ``base + c * mean`` one fma of the sum
+    with that constant.  A mean that arrives materialized (the rings')
+    is kept as ``value``, and ``base + c * mean`` is one fma of it."""
+
+    def __init__(self, total: Optional[torch.Tensor] = None, w: int = 1,
+                 value: Optional[torch.Tensor] = None, dtype=torch.float32):
+        self.total, self.w, self._value, self.dtype = total, w, value, dtype
+
+    @classmethod
+    def of_rows(cls, rows: torch.Tensor) -> "WorkerMean":
+        return cls(_local_sum(rows), rows.shape[0], dtype=rows.dtype)
+
+    def _coef(self, c: float) -> float:
+        return _f32(_f32(c) * _f32(1.0 / self.w))
+
+    def _folds(self) -> bool:
+        return self._value is None and self.dtype == torch.float32
+
+    def value(self) -> torch.Tensor:
+        """The mean itself: ``sum * f32(1/W)``, in the rows' dtype."""
+        if self._value is None:
+            self._value = _mean_of_sum(self.total.clone(), self.w, self.dtype)
+        return self._value
+
+    def scaled(self, c: float) -> torch.Tensor:
+        """``c * mean``."""
+        if self._folds():
+            return self.total * self._coef(c)
+        return self.value() * c
+
+    def axpy(self, base: torch.Tensor, c: float = 1.0) -> torch.Tensor:
+        """``base + c * mean``, rounded once."""
+        if self._folds():
+            return torch.add(base, self.total, alpha=self._coef(c))
+        return torch.add(base, self.value(), alpha=c)
+
+    def axpy_(self, base: torch.Tensor, c: float = 1.0) -> torch.Tensor:
+        """``axpy`` into ``base``, in place."""
+        if self._folds():
+            return base.add_(self.total, alpha=self._coef(c))
+        return base.add_(self.value(), alpha=c)
 
 
 def dense_mean(wtree: Tree) -> Tree:

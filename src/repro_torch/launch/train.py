@@ -17,7 +17,8 @@ that do it.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
-          [--compressor natural|topk|q8_block|...] [--shift-rule diana] \
+          [--compressor natural|topk|randk|q8_block|...] \
+          [--shift-rule diana|rand_diana|vr_gdci|...] \
           [--comm-mode dense|q8_ring|q8_ring_fused|ef21|efbv] \
           [--drift-resync-every N] [--efbv-eta ETA] [--efbv-nu NU] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
@@ -39,6 +40,7 @@ from repro_torch.comm.wire import GeneratorNoise
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
 from repro_torch.core.compressors import f32_bits
+from repro_torch.core.iterate_comp import VRGDCI
 from repro_torch.core.shift_rules import SHIFT_RULES
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
@@ -53,7 +55,7 @@ COMM_MODES = tuple(m for m in CHANNEL_MODES if m != "sim")
 
 #: CLI shift rules, the reference's: the registry minus the oracle rule
 #: (it needs the gradients at the optimum) plus the iterate-compression
-#: Algorithm 2 (unported rules raise from ``CompressionConfig.make``)
+#: Algorithm 2
 SHIFT_RULE_CHOICES = tuple(
     r for r in SHIFT_RULES if r != "star"
 ) + ("vr_gdci",)
@@ -66,7 +68,9 @@ class TrainState(NamedTuple):
     h_bar: Any          # master aggregated shift (None if stateless)
     noise: Any          # the rounds' uniform source (comm.wire)
     step: int
-    bits: torch.Tensor  # cumulative uplink bits, f32 0-d on the CPU
+    bits: torch.Tensor  # cumulative uplink bits, f32 0-d: on the CPU,
+                        # on the device once a drawn count enters it
+                        # (Rand-DIANA's refreshes)
 
 
 def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
@@ -80,7 +84,7 @@ def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
     opt = make_optimizer(tcfg).init(params)
     comp = tcfg.compression
     if comp.enabled:
-        _, rule = comp.make()
+        _, rule = comp.make(learning_rate=tcfg.learning_rate)
         h, h_bar = rule.init(params, w), rule.init_bar(params)
     else:
         h = h_bar = None
@@ -100,7 +104,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
     comp = tcfg.compression
     optimizer = make_optimizer(tcfg)
     channel = make_channel(comp, HostMesh() if mesh is None else mesh)
-    q, rule = comp.make() if comp.enabled else (None, None)
+    q, rule = (comp.make(learning_rate=tcfg.learning_rate) if comp.enabled
+               else (None, None))
+    iterate_rule = isinstance(rule, VRGDCI)
 
     def loss_fn(params, batch):
         return M.train_loss(params, cfg, batch)
@@ -111,6 +117,15 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
         if not comp.enabled:
             g_bar = channel.reduce_mean(state.noise, grads)
             h, h_bar, bits = state.h, state.h_bar, state.bits
+        elif iterate_rule:
+            # Algorithm 2: the round mixes the iterate itself (in place)
+            params, h, h_bar, step_bits = rule.round(
+                state.noise, state.params, grads, state.h, state.h_bar,
+                channel)
+            new_state = TrainState(params, state.opt, h, h_bar, state.noise,
+                                   state.step + 1, state.bits + step_bits)
+            return new_state, {**metrics, "loss": loss,
+                               "bits": new_state.bits}
         else:
             g_bar, h, h_bar, step_bits = rule.round(
                 q, state.noise, grads, state.h, state.h_bar, channel)

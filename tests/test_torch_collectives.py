@@ -131,12 +131,17 @@ def test_cli_rejects_star():
 
 
 def test_vr_gdci_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        CompressionConfig(shift_rule="vr_gdci").make()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1",
-                         "--batch", "4", "--seq", "16", "--device", "cpu",
-                         "--shift-rule", "vr_gdci"])
+    """``vr_gdci`` builds Algorithm 2 with the outer learning rate as its
+    gamma, and names that argument when it is missing, as the
+    reference's ``make`` does."""
+    from repro_torch.core.iterate_comp import VRGDCI
+
+    comp = CompressionConfig(shift_rule="vr_gdci")
+    with pytest.raises(ValueError, match="learning_rate"):
+        comp.make()
+    q, rule = comp.make(learning_rate=0.01)
+    assert rule == VRGDCI(q=q, gamma=0.01, eta=comp.gdci_eta,
+                          alpha=comp.shift_alpha)
 
 
 class _Stop(Exception):

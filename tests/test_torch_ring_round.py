@@ -60,7 +60,8 @@ class ReplayNoise:
     def __init__(self, msg, ring):
         self.msg, self.ring = list(msg), list(ring)
 
-    def uniform(self, leaf, worker, shape):
+    def uniform(self, leaf, worker, shape, part=None):
+        assert part in (None, "q")           # DIANA's Q part, or one part
         l, w, u = self.msg.pop(0)
         assert (l, w) == (leaf, worker) and u.shape == tuple(shape)
         return torch.from_numpy(u.copy())

@@ -55,7 +55,8 @@ class ReplayNoise:
     def __init__(self, draws):
         self.draws = list(draws)
 
-    def uniform(self, leaf, worker, shape):
+    def uniform(self, leaf, worker, shape, part=None):
+        assert part in (None, "q")           # DIANA's Q part, or one part
         l, w, u = self.draws.pop(0)
         assert (l, w) == (leaf, worker) and u.shape == tuple(shape)
         return torch.from_numpy(u.copy())
@@ -265,7 +266,11 @@ def _shift_round_bitwise(rule, channel, w):
         h = h_bar = None
     key = jax.random.PRNGKey(11)
     jch = JaxSim() if channel == "sim" else JaxMesh(mode="dense")
-    g_bar, h1, hb1, bits = jr.round(JaxQ8(), key, grads, h, h_bar, jch)
+    # jitted, as the reference runs its round (XLA folds the mean's
+    # f32(1/W) into the shift updates that consume it)
+    g_bar, h1, hb1, bits = jax.jit(
+        lambda g, s, sb: jr.round(JaxQ8(), key, g, s, sb, jch))(
+            grads, h, h_bar)
 
     def port(t):
         return None if t is None else {
