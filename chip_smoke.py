@@ -27,7 +27,8 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 4. Cross-check, for qwen3-0.6b (DIANA + q8) in the ``dense`` and the
    ``q8_ring_fused`` mode and for rwkv6-3b in ``dense``: one step of
    the smoke config on the card (kernels) and on the CPU (plain
-   versions) from one state and one stream of uniforms; bits exactly,
+   versions) from one state and one set of uniforms, drawn on the CPU
+   by address (``HostNoise``); bits exactly,
    the loss to f32 precision, the shifts within a stated number of
    lattice steps and the params within 2 lr, each with a bound on the
    share of elements beyond f32 noise.
@@ -41,7 +42,8 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 6. The ring main path: the same 3 steps in ``q8_ring_fused`` mode on a
    ``HostMesh(data=4)`` -- 4 ring positions on the one card -- with the
    same checks; the ring's launches are counted too (the chunk
-   quantize, the accumulating dequant, the all-gather decode).
+   quantize, the accumulating dequant, the all-gather decode), and the
+   params and shifts after the 3 steps digested leaf by leaf (9b).
 7. The RWKV-6 main path: the same 3 dense steps of rwkv6-3b at full
    width and RWKV_LAYERS of its 32 layers, with the same checks; each
    layer launches one WKV6 forward and one backward per worker and step.
@@ -55,13 +57,29 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    magnitudes, a row a block: not the function); the top-k kernel's
    registers, shared memory and spills from ptxas.
    Cross-checks as in 4 for DIANA + ``natural``, for ``ef21`` +
-   ``topk`` and for ``vr_gdci`` + ``randk`` (Algorithm 2: the round
-   mixes the params, AdamW is bypassed).
+   ``topk``, for the overlap runtime (``q8_ring_overlap`` with DIANA,
+   ``efbv_overlap``), for the fused backward encode
+   (``q8_ring_fused_vjp`` with DIANA), all three with the q8 codec over
+   the 4-position ring, and for ``vr_gdci`` + ``randk`` (Algorithm 2:
+   the round mixes the params, AdamW is bypassed).
 9. Three more full-size qwen3-0.6b paths, 3 steps each with the checks
    of 5: DIANA + ``natural`` + dense (the reference's default
    configuration), ``ef21`` + ``topk`` (q = 0.1) and ``rand_diana``
    (p = 0.05) + ``randk`` (q = 0.1), whose bits add one dense f32
    message for each refresh drawn (the round's aux draws, counted).
+   Then EF-BV + q8 in ``q8_ring_fused`` mode: 3 steps, no breakdown,
+   the reference of ``efbv_overlap`` below.
+9b. The overlap runtime and the fused backward encode at full size over
+   the 4-position ring, 3 steps each with the checks of 5 (bits summed
+   in the buckets' order, each q8 kernel's launches those of 6) and
+   their bucket count: ``q8_ring_overlap`` (DIANA, the default 4 MiB
+   buckets), ``efbv_overlap`` and ``q8_ring_fused_vjp`` (DIANA, one
+   bucket per leaf).  After the 3 steps each path's params, shifts and
+   master shift equal, by per-leaf SHA-256 digests of host copies,
+   those of the ``q8_ring_fused`` path of its rule from the same seed
+   (6, or 9's EF-BV run).  Their breakdowns also time the round whole
+   (the reductions on the side stream) and, for the fused mode, the
+   gradients with the encode inside.
 10. The entry points of the two kernels, ``shifted_natural(rand, g, h)``
    and ``block_topk(g, q=0.1)``, over all 13 full-size qwen3-0.6b
    leaves, with g worker 0's gradient of a fourth step of the natural
@@ -200,24 +218,29 @@ def lanes(x, rows_pad):
 
 
 class HostNoise:
-    """Uniforms drawn on the CPU from one seed, handed to any device: the
-    GPU and CPU runs of the cross-check consume identical draws."""
+    """Uniforms drawn on the CPU by address (``AddressedNoise``, so in any
+    order of the calls), handed to any device: the GPU and CPU runs of
+    the cross-check consume identical draws."""
 
     def __init__(self, seed, device):
-        self.gen = torch.Generator().manual_seed(seed)
-        self.device = device
+        from repro_torch.comm.wire import AddressedNoise
 
-    def uniform(self, leaf, worker, shape, part=None):
-        return torch.rand(shape, generator=self.gen).to(self.device)
+        self.source, self.device = AddressedNoise(seed, "cpu"), device
 
-    def permutation(self, leaf, worker, d, part=None):
-        return torch.randperm(d, generator=self.gen).to(self.device)
+    def uniform(self, *args, **kw):
+        return self.source.uniform(*args, **kw).to(self.device)
+
+    def permutation(self, *args, **kw):
+        return self.source.permutation(*args, **kw).to(self.device)
 
     def aux_uniform(self, shape):
-        return torch.rand(shape, generator=self.gen).to(self.device)
+        return self.source.aux_uniform(shape).to(self.device)
 
-    def ring_uniform(self, leaf, hop, shape):
-        return torch.rand(shape, generator=self.gen).to(self.device)
+    def ring_uniform(self, *args):
+        return self.source.ring_uniform(*args).to(self.device)
+
+    def next_round(self):
+        self.source.next_round()
 
 
 def phase_card():
@@ -1077,8 +1100,18 @@ def _slice_configs(cfg, comm_mode="dense", codec="q8_block", rule="diana"):
 
 
 def shift_rate(comp):
-    """How much of a message the shift integrates: DIANA's alpha, EF21's 1."""
-    return 1.0 if comp.effective_shift_rule == "ef21" else comp.shift_alpha
+    """How much of a message the shift integrates: DIANA's alpha, EF21's 1,
+    EF-BV's eta."""
+    rule = comp.effective_shift_rule
+    return {"ef21": 1.0, "efbv": comp.efbv_eta}.get(rule, comp.shift_alpha)
+
+
+def ring_mode(comm_mode):
+    """Whether ``comm_mode`` aggregates through the q8 ring (the overlap
+    and fused-VJP modes do, in the ``q8_ring_fused`` format)."""
+    from repro_torch.comm.channel import aggregation_mode_of
+
+    return aggregation_mode_of(comm_mode) != "dense"
 
 
 def lattice(msg, block_rows=64):
@@ -1173,7 +1206,7 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
     from repro_torch.launch.train import build_train_step, init_state
 
     TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
-    ring = comm_mode.startswith("q8_ring")
+    ring = ring_mode(comm_mode)
     cfg = get_smoke_config(arch).with_(dtype="float32")
     tcfg = _slice_configs(cfg, comm_mode, codec, rule)
     alpha = shift_rate(tcfg.compression)
@@ -1255,19 +1288,23 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
 RANDK_Q = 0.1               # keep fraction of the randk codec (its default)
 
 
-def structural_bits(cfg, steps, codec="q8_block", refreshes=None):
+def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
+                    reverse=False):
     """The f32 bit counter the step must report, from leaf shapes alone:
     per leaf and worker, q8 the int8 lanes block and one f32 scale per
     tile; natural 9 bits an element (8-bit exponent, 1-bit sign); top-k
     and randk k = round(q d) values of 32 bits and indices of
     ceil(log2 d) bits.  ``refreshes``: Rand-DIANA's refreshing workers of
-    each step, each charged one dense f32 message of every param."""
+    each step, each charged one dense f32 message of every param.
+    ``reverse``: the leaves summed last first, as the overlap runtime's
+    rounds sum them (its buckets' order)."""
     from repro_torch.kernels.q8ring.ops import q8_layout
     from repro_torch.models.model import param_specs
 
     step_bits = np.float32(0)
     dense = 0
-    for _, shape, _ in param_specs(cfg):
+    specs = param_specs(cfg)
+    for _, shape, _ in (specs[::-1] if reverse else specs):
         d = math.prod(shape)
         dense += 32 * d
         if codec == "natural":
@@ -1307,14 +1344,44 @@ class RefreshCount:
         self.aux.append(self.source.aux_uniform(shape))
         return self.aux[-1]
 
+    def next_round(self):
+        self.source.next_round()
+
+
+def state_digests(state):
+    """Per-leaf SHA-256 of host copies of the params, the shifts and the
+    master shift, leaf by leaf (two full states do not fit beside a step
+    on the card), each leaf hashed in 8 pieces on 8 threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = {}
+    with ThreadPoolExecutor(8) as pool:
+        for name in ("params", "h", "h_bar"):
+            for k, v in getattr(state, name).items():
+                host = v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                parts = [pool.submit(lambda a: hashlib.sha256(a).hexdigest(),
+                                     piece)
+                         for piece in np.array_split(host, 8)]
+                out[f"{name}/{k}"] = tuple(f.result() for f in parts)
+                del host
+    return out
+
 
 def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
-                    rule="diana"):
-    """3 steps of ``cfg`` in ``comm_mode`` (``dense`` or ``ef21``, or
-    ``q8_ring_fused`` over a ``HostMesh(data=RING)`` on the card) with
-    ``codec`` and ``rule``; returns the kernels' launch counts of those
-    steps and, with ``keep``, worker 0's gradient of a fourth step and
-    its shift before it (the entry-point phase's inputs), else None."""
+                    rule="diana", digest=False, breakdown=True):
+    """3 steps of ``cfg`` in ``comm_mode`` with ``codec`` and ``rule``:
+    ``dense`` or ``ef21``, or a ring mode (``q8_ring_fused``, the overlap
+    modes ``q8_ring_overlap``/``efbv_overlap``, ``q8_ring_fused_vjp``)
+    over a ``HostMesh(data=RING)`` on the card.  Returns the kernels'
+    launch counts of those steps; with ``digest``, per-leaf digests of
+    the params and shifts after them (else None); with ``keep``, worker
+    0's gradient of a fourth step and its shift before it (the
+    entry-point phase's inputs), else None.  ``breakdown``: time a
+    fourth step phase by phase."""
+    from repro_torch.comm.channel import FUSED_VJP_MODES, OVERLAP_MODES
+    from repro_torch.comm.overlap import plan_buckets
+    from repro_torch.core.compressors import ShapeDtype
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.natural.kernel import shifted_natural_2d
     from repro_torch.kernels.q8ring import kernel as K
@@ -1323,7 +1390,8 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
-    ring = comm_mode.startswith("q8_ring")
+    ring = ring_mode(comm_mode)
+    async_mode = comm_mode in OVERLAP_MODES + FUSED_VJP_MODES
     n = RING if ring else 1
     tcfg = _slice_configs(cfg, comm_mode, codec, rule)
     mesh = HostMesh(data=n, device="cuda")
@@ -1357,12 +1425,13 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     acc_launches = K.q8_dequant_add_2d.acc_launches
     peak = torch.cuda.max_memory_allocated()
 
-    # leaves x workers x steps for the q8 message encode and decode; per
-    # leaf and step the ring adds n chunk quantizes at each of its n
-    # positions, n - 1 accumulating dequants at each, and one all-gather
-    # decode per owner; an RWKV-6 layer runs one WKV6 forward and one
-    # backward per worker and step (no recompute).  The natural and top-k
-    # codecs are plain PyTorch, as the reference's are: no kernel
+    # leaves x workers x steps for the q8 message encode and decode (in the
+    # fused mode inside the backward pass); per leaf and step the ring adds
+    # n chunk quantizes at each of its n positions, n - 1 accumulating
+    # dequants at each, and one all-gather decode per owner, in any bucket
+    # plan; an RWKV-6 layer runs one WKV6 forward and one backward per
+    # worker and step (no recompute).  The natural and top-k codecs are
+    # plain PyTorch, as the reference's are: no kernel
     leaves = len(state.params)
     msgs = leaves * W * STEPS if codec == "q8_block" else 0
     wkv = cfg.n_layers * W * STEPS if cfg.arch_type == "ssm" else 0
@@ -1380,7 +1449,7 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     if rule == "rand_diana":
         p = tcfg.compression.shift_p
         refreshes = [int((u < p).sum()) for u in counter.aux[:STEPS]]
-    want = structural_bits(cfg, STEPS, codec, refreshes)
+    want = structural_bits(cfg, STEPS, codec, refreshes, reverse=async_mode)
     check(metrics["bits"].item() == want,
           f"bits {metrics['bits'].item()} != structural {want}")
     what = f"main path {cfg.name} {comm_mode} {codec}" + (
@@ -1390,35 +1459,60 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     check(acc_launches == expect_acc,
           f"{what}: accumulating q8_dequant_add_2d launched "
           f"{acc_launches} times, expected {expect_acc}")
+    plan = ""
+    if async_mode:
+        like = {k: ShapeDtype((W, *v.shape), v.dtype, v.device)
+                for k, v in state.params.items()}
+        budget = tcfg.compression.overlap_bucket_bytes
+        per_leaf = comm_mode in FUSED_VJP_MODES
+        plan = (f", buckets {len(plan_buckets(like, budget, per_leaf=per_leaf))}"
+                f" ({'one per leaf' if per_leaf else f'{budget} B budget'})")
     log(f"{what}: {cfg.n_layers} layers, "
         f"{sum(p.numel() for p in state.params.values()):,} params, "
         f"{leaves} leaves, w={W}, ring positions {n}, batch {BATCH}, seq "
-        f"{SEQ}")
+        f"{SEQ}{plan}")
     log(f"{what}: losses {losses}; bits {metrics['bits'].item():.0f} "
-        f"(structural" + ("" if refreshes is None else
-                          f"; workers refreshed per step {refreshes}")
+        f"(structural" + (", summed in bucket order" if async_mode else "")
+        + ("" if refreshes is None else
+           f"; workers refreshed per step {refreshes}")
         + f"); launches {launches}, of which accumulating dequant "
         f"{acc_launches} (as expected)")
     log(f"{what}: step seconds {[round(t, 4) for t in step_s]}; peak "
         f"memory allocated {peak / 2**30:.2f} GiB")
+    digests = None
+    if digest:
+        t0 = time.perf_counter()
+        digests = state_digests(state)
+        log(f"{what}: digests of {len(digests)} leaves (params, h, h_bar) "
+            f"in {time.perf_counter() - t0:.1f} s")
     h0 = {k: h[0].clone() for k, h in state.h.items()} if keep else None
-    g0 = phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep)
-    return launches, (g0, h0) if keep else None
+    g0 = (phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep)
+          if breakdown else None)
+    return launches, digests, (g0, h0) if keep else None
 
 
 def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
     """Device time of each phase of one more step, run piece by piece:
     gradients, the round's messages, its aggregation, its apply, AdamW.
+    In the overlap and fused-VJP modes the aggregation is the bucketed
+    channel's, drained, and the round is also timed whole (its messages,
+    the reductions issued bucket by bucket on the side stream, apply),
+    which shows how much of the aggregation the side stream hid.  In the
+    fused-VJP mode the gradients are timed plain and tapped (the encode
+    inside the backward pass), and the messages are the tapped ones.
     With ``keep``, returns worker 0's gradients of that step."""
-    from repro_torch.comm.channel import make_channel
+    from repro_torch.comm.channel import FUSED_VJP_MODES, make_channel
+    from repro_torch.comm.overlap import AsyncChannel
     from repro_torch.dist.worker_grads import per_worker_grads, split_batch
-    from repro_torch.models import model as M
+    from repro_torch.launch.train import with_fused_draws, worker_loss
     from repro_torch.optim.optimizers import make_optimizer
 
     cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
-    q, rule = tcfg.compression.make()
-    channel = make_channel(tcfg.compression, mesh)
+    comp = tcfg.compression
+    q, rule = comp.make()
+    channel = make_channel(comp, mesh)
     optimizer = make_optimizer(tcfg)
+    fused = comp.comm_mode in FUSED_VJP_MODES
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1427,25 +1521,73 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    t = {}
-    (grads, _, _), t["grads"] = timed(lambda: per_worker_grads(
-        lambda p, b: M.train_loss(p, cfg, b), state.params,
-        split_batch(batch, W)))
-    (m, _), t["message"] = timed(lambda: rule.message(
-        q, state.noise, grads, state.h))
+    t, whole = {}, {}
+    wbatch = split_batch(batch, W)
+
+    def grads_of(tapped):
+        if tapped:
+            return per_worker_grads(
+                worker_loss(cfg, rule, q), state.params,
+                with_fused_draws(wbatch, rule, q, state, W))[0]
+        return per_worker_grads(worker_loss(cfg), state.params, wbatch)[0]
+
+    if fused:
+        # tapped and plain in turns (tapped, plain, plain, tapped): the
+        # difference of their means is the encode moved into the backward
+        runs = {False: [], True: []}
+        for tapped in (True, False, False, True):
+            grads = None
+            grads, secs = timed(lambda: grads_of(tapped))
+            runs[tapped].append(secs)
+        t["grads"] = statistics.mean(runs[False])
+        whole["grads, encode inside"] = statistics.mean(runs[True])
+        m = grads     # the last run's tapped gradients ARE the messages
+    else:
+        grads, t["grads"] = timed(lambda: grads_of(False))
+        (m, _), t["message"] = timed(lambda: rule.message(
+            q, state.noise, grads, state.h))
     (aux, _), t["aux"] = timed(lambda: rule.aux(state.noise, grads, state.h))
+    if isinstance(channel, AsyncChannel):
+        # this channel's side stream is new, and the caching allocator
+        # keeps a pool per stream: fill it as the step's first round did
+        channel.reduce(state.noise, m)
     m_bar, t["aggregation"] = timed(lambda: channel.reduce(state.noise, m))
     (g_bar, _, _), t["apply"] = timed(lambda: rule.apply(
         grads, m, m_bar, state.h, state.h_bar, aux))
+    if isinstance(channel, AsyncChannel):
+        # the whole round again (h and h_bar move twice: this state is
+        # not stepped further)
+        m_bar = g_bar = None
+        if fused:
+            (g_bar, _, _, _), whole["round"] = timed(
+                lambda: channel.fused_round(rule, q, state.noise, m,
+                                            state.h, state.h_bar))
+        else:
+            m = None
+            (g_bar, _, _, _), whole["round"] = timed(
+                lambda: channel.shift_round(rule, q, state.noise, grads,
+                                            state.h, state.h_bar))
     g0 = {k: g[0].clone() for k, g in grads.items()} if keep else None
-    del grads, m, m_bar
+    grads = m = m_bar = None
     _, t["adamw"] = timed(lambda: optimizer.update(g_bar, state.opt,
                                                    state.params))
     total = sum(t.values())
-    log(f"breakdown {cfg.name} {tcfg.compression.comm_mode} "
-        f"{tcfg.compression.compressor} "
-        f"{tcfg.compression.effective_shift_rule} (s): "
-        + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items()))
+    extra = ""
+    if "round" in whole:
+        parts = (t.get("message", 0.0) + t["aggregation"] + t["apply"])
+        extra += (f"; whole round {whole['round']:.4f} against its parts "
+                  f"{parts:.4f} (hidden {parts - whole['round']:.4f}, "
+                  f"{(parts - whole['round']) / t['aggregation']:.1%} of the "
+                  f"aggregation)")
+    if fused:
+        moved = whole["grads, encode inside"] - t["grads"]
+        extra += (f"; grads with the encode inside "
+                  f"{whole['grads, encode inside']:.4f} (message moved into "
+                  f"grads {moved:.4f})")
+    log(f"breakdown {cfg.name} {comp.comm_mode} {comp.compressor} "
+        f"{comp.effective_shift_rule} (s): "
+        + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items())
+        + extra)
     return g0
 
 
@@ -1718,19 +1860,37 @@ def main(argv=None):
              (qwen, "dense", "natural", "diana"),
              (qwen, "ef21", "topk", "diana"),
              (qwen, "dense", "randk", "rand_diana")]
-    for cfg, mode, codec, rule in paths[:5] + [(qwen, "dense", "randk",
-                                                "vr_gdci")]:
+    # the overlap runtime and the fused backward encode, each held by
+    # digest against the q8_ring_fused path of its rule (EF-BV's run only
+    # for that, without a breakdown)
+    efbv_ring = (qwen, "q8_ring_fused", "q8_block", "efbv")
+    overlap_paths = [(qwen, "q8_ring_overlap", "q8_block", "diana"),
+                     (qwen, "efbv_overlap", "q8_block", "diana"),
+                     (qwen, "q8_ring_fused_vjp", "q8_block", "diana")]
+    for cfg, mode, codec, rule in (paths[:5] + overlap_paths
+                                   + [(qwen, "dense", "randk", "vr_gdci")]):
         phase_cross_check(cfg.name, mode, codec, rule)
-    by_path = {}
-    for cfg, mode, codec, rule in paths:
+    by_path, digests = {}, {}
+    for cfg, mode, codec, rule in paths + [efbv_ring] + overlap_paths:
         name = f"{cfg.name} {mode} {codec}" + (
             "" if rule == "diana" else f" {rule}")
-        by_path[name], kept = phase_main_path(
-            cfg, mode, codec, keep=codec == "natural", rule=rule)
+        by_path[name], digests[name], kept = phase_main_path(
+            cfg, mode, codec, keep=codec == "natural", rule=rule,
+            digest=cfg is qwen and ring_mode(mode),
+            breakdown=(cfg, mode, codec, rule) != efbv_ring)
         if kept is not None:
             entry_inputs = kept
         del kept
         torch.cuda.empty_cache()
+    for _, mode, codec, _ in overlap_paths:
+        ref = f"qwen3-0.6b q8_ring_fused {codec}" + (
+            " efbv" if mode == "efbv_overlap" else "")
+        got, want = digests[f"qwen3-0.6b {mode} {codec}"], digests[ref]
+        off = [k for k in want if got[k] != want[k]]
+        check(not off, f"{mode}: {len(off)} leaves differ from {ref} after "
+                       f"{STEPS} steps: {off[:4]}")
+        log(f"{mode}: params, h and h_bar after {STEPS} steps bitwise equal "
+            f"to {ref} ({len(want)} leaf digests)")
     by_path["qwen3-0.6b entry points"] = phase_entry_points(*entry_inputs)
     del entry_inputs
     torch.cuda.empty_cache()

@@ -4,16 +4,21 @@ port runs.
 
 ``Channel.uplink`` is the W-stacked encode and decode of a tree with its
 structural wire bits (DCGD-STAR's and GDCI's messages);
-``Channel.shift_round`` schedules one shift-rule round.
+``Channel.push_mean`` is an uplink then its aggregation;
+``Channel.shift_round`` schedules one shift-rule round, and
+``Channel.fused_round`` its reduce/apply tail for messages the backward
+pass already emitted (``comm.fused_vjp``).
 
 ``SimChannel`` is the parameter server (exact worker mean);
 ``MeshChannel`` is the production aggregation of the stacked-worker
 step over a ``launch.mesh.HostMesh``, in the ``dense`` (exact mean),
 ``q8_ring`` (``Int8Stochastic`` ring) or ``q8_ring_fused`` (the ring on
 the q8 kernels) format (``dist.collectives``); the ``ef21`` and
-``efbv`` comm modes aggregate densely.  The other aggregation
-formats and channels raise ``NotImplementedError``, naming the ROADMAP
-item that adds them.
+``efbv`` comm modes aggregate densely.  ``AsyncChannel``
+(``comm.overlap``) is the overlap runtime: the ``q8_ring_overlap`` and
+``efbv_overlap`` modes, and ``q8_ring_fused_vjp`` with one bucket per
+leaf.  The other aggregation formats raise ``NotImplementedError``,
+naming the ROADMAP item that adds them.
 """
 
 from __future__ import annotations
@@ -37,15 +42,19 @@ Tree = Dict[str, torch.Tensor]
 #: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
 _NOT_PORTED = {
     "randk_shared": "ROADMAP queue 1, item 5 (collectives)",
-    "q8_ring_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
-    "efbv_overlap": "ROADMAP queue 1, item 7 (overlap runtime)",
-    "q8_ring_fused_vjp": "ROADMAP queue 1, item 8 (fused backward encode)",
     "auto": "ROADMAP queue 1, item 11 (tune)",
 }
 
+#: comm modes served by the bucketed overlap runtime (``AsyncChannel``)
+OVERLAP_MODES = ("q8_ring_overlap", "efbv_overlap")
+
+#: comm modes whose messages the backward pass itself emits
+#: (``comm.fused_vjp``), reduced by the ``AsyncChannel`` one leaf a bucket
+FUSED_VJP_MODES = ("q8_ring_fused_vjp",)
+
 #: every comm mode the reference accepts: the ported ones first
-CHANNEL_MODES = ("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv",
-                 "sim") + tuple(_NOT_PORTED)
+CHANNEL_MODES = (("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv", "sim")
+                 + OVERLAP_MODES + FUSED_VJP_MODES + tuple(_NOT_PORTED))
 
 
 def _check_ported(mode: str):
@@ -87,6 +96,11 @@ class Channel:
         """``reduce``, each mean materialized."""
         return {k: m.value() for k, m in self.reduce(noise, wtree).items()}
 
+    def push_mean(self, q, noise, wtree: Tree):
+        """One uplink round: ``(messages, mean over workers, wire bits)``."""
+        m, bits = self.uplink(q, noise, wtree)
+        return m, self.reduce_mean(noise, m), bits
+
     def shift_round(self, rule, q, noise, wgrads, h, h_bar):
         """One shift-rule round: the rule's whole-tree message, its aux
         draw, ONE aggregation of the message tree, then ``apply``.
@@ -95,6 +109,24 @@ class Channel:
         aux, extra = rule.aux(noise, wgrads, h)
         m_bar = self.reduce(noise, m)
         g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar, aux)
+        return g_bar, h_new, hb_new, bits + extra
+
+    def fused_round(self, rule, q, noise, msgs, h, h_bar):
+        """``shift_round`` for messages the backward pass already emitted
+        (``comm.fused_vjp``): its aux draw, one aggregation and ``apply``,
+        the messages standing in for the dense gradients a fusible rule
+        never reads.  The bits are each leaf's structural
+        ``message_bits_aot``, added in ``rule.message``'s leaf order.
+        Returns ``(g_bar, h_new, h_bar_new, bits)``."""
+        from repro_torch.comm.fused_vjp import check_fusible
+
+        check_fusible(rule)
+        bits = f32_bits()
+        for leaf in msgs.values():
+            bits = bits + f32_bits(rule.message_bits_aot(q, leaf))
+        aux, extra = rule.aux(noise, msgs, h)
+        m_bar = self.reduce(noise, msgs)
+        g_bar, h_new, hb_new = rule.apply(msgs, msgs, m_bar, h, h_bar, aux)
         return g_bar, h_new, hb_new, bits + extra
 
 
@@ -123,11 +155,14 @@ class MeshChannel(Channel):
             raise ValueError(f"{self.mode!r} is not an aggregation mode; "
                              f"have {AGGREGATION_MODES}")
 
-    def reduce(self, noise, wtree):
+    def reduce(self, noise, wtree, leaf_indices=None):
+        """``leaf_indices``: the leaves' global tree positions, which the
+        ring's draws are bound to (default: their places in ``wtree``)."""
         if self.mode == "dense":
             return {k: WorkerMean.of_rows(a) for k, a in wtree.items()}
         means = compressed_tree_mean(wtree, self.mode, noise, self.mesh,
-                                     q8_block_rows=self.q8_block_rows)
+                                     q8_block_rows=self.q8_block_rows,
+                                     leaf_indices=leaf_indices)
         return {k: WorkerMean(value=v) for k, v in means.items()}
 
 
@@ -140,27 +175,47 @@ def aggregation_mode_of(mode_or_cfg) -> str:
         return mode_or_cfg.aggregation_mode
     if mode_or_cfg in ("ef21", "efbv"):
         return "dense"
-    if mode_or_cfg in ("q8_ring_overlap", "efbv_overlap",
-                       "q8_ring_fused_vjp"):
+    if mode_or_cfg in OVERLAP_MODES + FUSED_VJP_MODES:
         return "q8_ring_fused"
     return mode_or_cfg
 
 
-def make_channel(mode_or_cfg="dense", mesh=None) -> Channel:
+def make_channel(mode_or_cfg="dense", mesh=None, *,
+                 bucket_bytes: Optional[int] = None) -> Channel:
     """Build a Channel from a comm-mode string or a CompressionConfig
-    (whose ``q8_block_rows`` sets the fused ring's scale block), over
-    ``mesh`` (a ``HostMesh``; the ring modes need one).  A disabled config
-    aggregates densely; unknown modes raise naming every accepted mode,
-    unported ones name their ROADMAP item."""
+    (whose ``q8_block_rows`` sets the fused ring's scale block and
+    ``overlap_bucket_bytes`` the overlap runtime's bucket budget), over
+    ``mesh`` (a ``HostMesh``; the ring modes need one).  The overlap
+    modes build the bucketed ``AsyncChannel`` (``bucket_bytes`` its
+    per-bucket budget in uncompressed per-worker message bytes, rejected
+    for every other mode); ``q8_ring_fused_vjp`` the same channel with
+    one bucket per leaf.  A disabled config aggregates densely; unknown
+    modes raise naming every accepted mode, unported ones name their
+    ROADMAP item."""
     comm_mode = getattr(mode_or_cfg, "comm_mode", mode_or_cfg)
     if not getattr(mode_or_cfg, "enabled", True):
         comm_mode = "dense"
     _check_ported(comm_mode)
+    overlap = comm_mode in OVERLAP_MODES + FUSED_VJP_MODES
+    if bucket_bytes is not None and not overlap:
+        raise ValueError(
+            f"bucket_bytes only applies to the overlap channels "
+            f"{OVERLAP_MODES + FUSED_VJP_MODES}, not {comm_mode!r} (it "
+            f"would be silently ignored)"
+        )
     if comm_mode == "sim":
         return SimChannel()
-    return MeshChannel(mode=aggregation_mode_of(mode_or_cfg), mesh=mesh,
-                       q8_block_rows=getattr(mode_or_cfg, "q8_block_rows",
-                                             None))
+    kw = dict(mode=aggregation_mode_of(mode_or_cfg), mesh=mesh,
+              q8_block_rows=getattr(mode_or_cfg, "q8_block_rows", None))
+    if not overlap:
+        return MeshChannel(**kw)
+    from repro_torch.comm.overlap import DEFAULT_BUCKET_BYTES, AsyncChannel
+
+    if bucket_bytes is None:
+        bucket_bytes = getattr(mode_or_cfg, "overlap_bucket_bytes",
+                               DEFAULT_BUCKET_BYTES)
+    return AsyncChannel(**kw, bucket_bytes=bucket_bytes,
+                        per_leaf=comm_mode in FUSED_VJP_MODES)
 
 
 def resync_h_bar(h: Optional[Tree], h_bar: Optional[Tree], step: int,

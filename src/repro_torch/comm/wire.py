@@ -6,7 +6,8 @@ message splits it once more per part, and ``worker_keys`` splits it per
 worker -- or hands every worker the same key when the codec declares a
 shared pattern or is deterministic.  The port's codecs take their
 randomness from a draw object instead (``WorkerNoise``), and the draws
-come from one noise source in a fixed order:
+come from one noise source; the default schedule
+(``comm.channel.Channel.shift_round``) asks for them in this order:
 
 1. the messages, one uplink after another (StarShift sends Q's uplink,
    then C's); within an uplink leaf by leaf (the leaf's global position
@@ -28,16 +29,29 @@ come from one noise source in a fixed order:
    ring position uses the same draw at a given hop: the reference's ring
    key enters its ``shard_map`` replicated.
 
-``GeneratorNoise`` is the default source: a ``torch.Generator`` on the
-run's device, seeded from the run seed, every kind of draw taken from
-its one stream in the order above.  Any object with the same methods
-can stand in for it -- the parity tests replay the draws the reference
-makes along its own key chain, which is how the port's round is held
-bit for bit against the reference's.
+Two sources implement this protocol, and so can any object with the
+same methods (the parity tests replay the draws the reference makes
+along its own key chain, which is how the port's round is held bit for
+bit against the reference's):
+
+* ``AddressedNoise``, the training step's (``launch.train.init_state``):
+  every draw is a pure function of its address -- the seed, the round,
+  the kind of draw and its (leaf, worker or hop, part) -- so a round
+  draws the same bits in ANY order of its calls.  That is what lets the
+  overlap runtime (``comm.overlap``: bucket by bucket, message then
+  ring) and the fused backward encode (``comm.fused_vjp``: worker by
+  worker, in reverse layer order, inside autograd) re-schedule a round
+  and stay bitwise equal to ``MeshChannel``'s.  ``next_round()``, which
+  the step calls once per step, moves it to the next round's draws.
+* ``GeneratorNoise``: one ``torch.Generator`` stream, whose draws
+  depend on the order of the calls, which the round fixes as listed
+  above; the convex path (``core.algorithms``, ``core.iterate_comp``)
+  uses it.  Its ``next_round()`` does nothing: the stream goes on.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
@@ -77,6 +91,93 @@ class GeneratorNoise:
         """f32 uniforms in [0, 1) for ring hop ``hop`` of leaf ``leaf``,
         shared by every ring position."""
         return self.uniform(leaf, hop, shape)
+
+    def next_round(self) -> None:
+        """Nothing: the next round's draws continue the stream."""
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    """One step of splitmix64 (Steele, Lea & Flood, 2014): a bijective
+    64-bit mix whose outputs pass BigCrush as a sequence."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def _field(v) -> int:
+    """An address field as a 64-bit word: None is all ones (no worker,
+    no part), an int its two's complement, a part name its CRC-32."""
+    if v is None:
+        return _MASK64
+    if isinstance(v, str):
+        return zlib.crc32(v.encode())
+    return int(v) & _MASK64
+
+
+#: the kinds of draw, one address space each
+_UNIFORM, _PERMUTATION, _AUX, _RING = range(4)
+
+
+class AddressedNoise:
+    """The port's ``jax.random.fold_in``: every draw of a round is
+    addressed by name, ``(seed, round, kind, leaf, worker or hop, part)``,
+    and made by reseeding one ``torch.Generator`` on ``device`` from a
+    splitmix64 chain over that address.  The same address gives the same
+    bits in any order of the calls and on any stream.  It does not
+    reproduce the reference's threefry draws (the port never does: the
+    parity tests replay those), only their independence from the order.
+
+    On a CUDA device the generator is Philox, keyed by all 64 bits of
+    the mixed seed; the CPU's Mersenne Twister keeps the low 32 of them,
+    so two of a round's ~100 addresses collide there with probability
+    ~1e-6.  ``next_round()`` moves to the next round's addresses."""
+
+    def __init__(self, seed: int, device):
+        self.seed, self.round = int(seed), 0
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+
+    def _at(self, kind: int, leaf, sub, part) -> torch.Generator:
+        h = 0
+        for v in (self.seed, self.round, kind, leaf, sub, part):
+            h = _splitmix64(h ^ _field(v))
+        self.generator.manual_seed(h)
+        return self.generator
+
+    def uniform(self, leaf: int, worker: Optional[int], shape,
+                part: Optional[str] = None) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for ``worker``'s encode of leaf
+        ``leaf`` (``worker=None``: one draw for every worker)."""
+        return torch.rand(shape, generator=self._at(_UNIFORM, leaf, worker,
+                                                    part),
+                          device=self.device, dtype=torch.float32)
+
+    def permutation(self, leaf: int, worker: Optional[int], d: int,
+                    part: Optional[str] = None) -> torch.Tensor:
+        """A random permutation of ``range(d)`` (int64) for ``worker``'s
+        encode of leaf ``leaf``."""
+        return torch.randperm(d, generator=self._at(_PERMUTATION, leaf,
+                                                    worker, part),
+                              device=self.device)
+
+    def aux_uniform(self, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for the round's tree-level extras."""
+        return torch.rand(shape, generator=self._at(_AUX, None, None, None),
+                          device=self.device, dtype=torch.float32)
+
+    def ring_uniform(self, leaf: int, hop: int, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for ring hop ``hop`` of leaf ``leaf``,
+        shared by every ring position."""
+        return torch.rand(shape, generator=self._at(_RING, leaf, hop, None),
+                          device=self.device, dtype=torch.float32)
+
+    def next_round(self) -> None:
+        """Address the next round's draws."""
+        self.round += 1
 
 
 @dataclass(frozen=True)

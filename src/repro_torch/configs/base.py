@@ -88,11 +88,13 @@ class ModelConfig:
 class CompressionConfig:
     """How the DCGD-SHIFT layer is wired into the training step (same
     fields as the reference).  The port runs the ``dense``, ``q8_ring``,
-    ``q8_ring_fused``, ``ef21``, ``efbv`` and ``sim`` channels, the
-    ``fixed``/``dcgd``/``diana``/``ef21``/``efbv`` rules and the
-    ``identity``/``zero``/``int8``/``q8_block``/``natural``/``topk``
-    codecs; the other values raise ``NotImplementedError`` where they are
-    resolved."""
+    ``q8_ring_fused``, ``ef21``, ``efbv``, ``sim``, ``q8_ring_overlap``,
+    ``efbv_overlap`` and ``q8_ring_fused_vjp`` comm modes (the overlap
+    modes' bucket budget is ``overlap_bucket_bytes``), the
+    ``fixed``/``dcgd``/``diana``/``rand_diana``/``ef21``/``efbv``/
+    ``vr_gdci`` rules and the ``identity``/``zero``/``int8``/``q8_block``/
+    ``natural``/``topk``/``randk`` codecs; the other values raise
+    ``NotImplementedError`` where they are resolved."""
     enabled: bool = True
     compressor: str = "natural"
     compressor_kwargs: tuple = ()  # tuple of (key, value) pairs (hashable)

@@ -24,6 +24,10 @@ function:
         structural bits of a payload, or of a list of per-worker
         payloads: ``numel * dtype bits`` summed over tensor leaves, and
         ``numel * width`` over ``PackedBits`` leaves.
+  ``payload_like(like)``
+        one worker's payload for an input like ``like``, as meta tensors:
+        its shapes alone (no data, no draw), for the structural bits of
+        a message that was never encoded here (``comm.fused_vjp``).
   ``omega(d)`` / ``delta(d)``
         variance constants of the classes U(omega) and B(delta).
 
@@ -122,6 +126,16 @@ def f32_bits(bits: float = 0.0) -> torch.Tensor:
     return torch.tensor(bits, dtype=torch.float32)
 
 
+class _MetaDraw:
+    """A draw object whose draws are meta tensors: shapes, no values."""
+
+    def __call__(self, shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    def permutation(self, d: int):
+        return torch.empty(d, dtype=torch.int64, device="meta")
+
+
 @dataclass(frozen=True)
 class Compressor:
     """Base codec: subclasses implement ``encode``/``decode``; the dense
@@ -143,6 +157,12 @@ class Compressor:
 
     def wire_bits(self, payload) -> float:
         return wire_bits(payload)
+
+    def payload_like(self, like: ShapeDtype):
+        """``encode``'s payload for an input like ``like``, run on meta
+        tensors (a codec whose encode reads values overrides this)."""
+        x = torch.empty(like.shape, dtype=like.dtype, device="meta")
+        return self.encode(_MetaDraw(), x)[0]
 
     @property
     def stochastic(self) -> bool:
@@ -344,6 +364,14 @@ class TopK(Contractive):
                           device=like.device)
         out[payload["indices"].data.long()] = payload["values"].to(like.dtype)
         return out.reshape(like.shape)
+
+    def payload_like(self, like):
+        d = _numel(like.shape)
+        k = _k_of(self.q, d)
+        return {"values": torch.empty(k, dtype=like.dtype, device="meta"),
+                "indices": PackedBits(torch.empty(k, dtype=torch.int32,
+                                                  device="meta"),
+                                      _index_bits(d))}
 
     def encode_decode_stacked(self, draws, x):
         """Every worker row of the W-stacked ``x`` at once:

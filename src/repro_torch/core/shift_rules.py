@@ -13,6 +13,13 @@ leading ``(W,)`` axis on every leaf.  The phases are the reference's::
                                             ``noise`` is already bound
                                             to the leaf's GLOBAL position
     message(q, noise, wgrads, h) -> (m, bits)
+    message_draws(q, noise, w)   -> the leaf's w per-worker draws
+    message_leaf_worker(q, draw, g, h) -> m_j
+                                            ONE worker's row of
+                                            ``message_leaf`` (the fused
+                                            backward encode's unit,
+                                            ``comm.fused_vjp``)
+    message_bits_aot(q, wleaf_like) -> bits  from shapes alone
     aux(noise, wgrads, h)        -> (aux, extra_bits)
     apply(wgrads, m, m_bar, h, h_bar, aux)
                                  ``m_bar``: {path: WorkerMean}, the
@@ -42,8 +49,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.comm.channel import Channel, SimChannel
-from repro_torch.comm.wire import LeafNoise, encode_decode_workers
-from repro_torch.core.compressors import Compressor, Zero, f32_bits
+from repro_torch.comm.wire import LeafNoise, encode_decode_workers, worker_draws
+from repro_torch.core.compressors import Compressor, ShapeDtype, Zero, f32_bits
 from repro_torch.dist.collectives import WorkerMean
 
 Tree = Dict[str, torch.Tensor]
@@ -71,6 +78,20 @@ def residual_sq_diag(wgrads: Tree, h: Optional[Tree]):
     return {"grad_sq": grad_sq, "shift_residual_sq": resid_sq}
 
 
+def _encode_decode(q: Compressor, draw, x: torch.Tensor) -> torch.Tensor:
+    """One worker's round trip: ``decode(encode(draw, x))``."""
+    payload, meta = q.encode(draw, x)
+    return q.decode(payload, meta, ShapeDtype.of(x))
+
+
+def _bits_aot(q: Compressor, wleaf_like) -> float:
+    """Structural wire bits of ``q``'s payloads for a W-stacked leaf, from
+    its shape and dtype alone (``Compressor.payload_like``)."""
+    w, *inner = wleaf_like.shape
+    like = ShapeDtype(tuple(inner), wleaf_like.dtype, torch.device("meta"))
+    return float(w * q.wire_bits(q.payload_like(like)))
+
+
 def dense_message_bits(wgrads_like: Tree) -> float:
     """Structural wire cost of one worker's uncompressed message: each
     W-stacked leaf's inner numel at its dtype's width, summed."""
@@ -84,6 +105,12 @@ class ShiftRule:
 
     #: rules with ``stateful = False`` keep ``h``/``h_bar`` as ``None``
     stateful: bool = field(default=True, init=False, repr=False)
+
+    #: ``fusible``: ``apply`` reads only the per-worker messages, never
+    #: the dense ``wgrads``, and the round is message -> aux -> reduce ->
+    #: apply, so the fused backward encode (``comm.fused_vjp``) can emit
+    #: the messages as the cotangents themselves
+    fusible: bool = field(default=True, init=False, repr=False)
 
     def init(self, params: Tree, w: int) -> Optional[Tree]:
         """Worker-stacked zero shifts ``(W, *p.shape)`` per leaf."""
@@ -116,6 +143,28 @@ class ShiftRule:
             out[k] = m
             bits = bits + f32_bits(b)
         return out, bits
+
+    # -- the fused-backward decomposition of message_leaf ----------------
+    # ``message_leaf`` is ``message_leaf_worker`` over the rows of the
+    # W-stacked leaf, worker j with entry j of ``message_draws``, bit for
+    # bit: the fused backward encode runs it inside worker j's backward
+    # pass on that worker's cotangent.
+
+    def message_draws(self, q: Compressor, noise: LeafNoise, w: int) -> list:
+        """The ``w`` per-worker draw objects ``message_leaf`` consumes for
+        one leaf (``noise`` bound to its global position)."""
+        return worker_draws(q, noise, w)
+
+    def message_leaf_worker(self, q: Compressor, draw, g, h):
+        """ONE worker's row of ``message_leaf``: ``g`` and ``h`` without
+        the worker axis, ``draw`` that worker's entry of
+        ``message_draws``.  Returns the decoded message only."""
+        return _encode_decode(q, draw, g if h is None else g - h)
+
+    def message_bits_aot(self, q: Compressor, wleaf_like) -> float:
+        """``message_leaf``'s wire bits for a W-stacked leaf like
+        ``wleaf_like``, from its shape and dtype alone."""
+        return _bits_aot(q, wleaf_like)
 
     def aux(self, noise, wgrads, h):
         """Tree-level extras: ``(aux carried to apply, extra wire bits)``."""
@@ -151,8 +200,11 @@ class StarShift(ShiftRule):
 
     Needs the optimum, so it is the theoretical reference point only.
     Its state is ``{"h", "star"}`` (``init_with_star``) and its round
-    sends two uplinks, Q's then C's, so it overrides ``round`` wholesale;
-    it runs on the parameter server (``SimChannel``) only."""
+    sends two uplinks, Q's then C's, so it overrides ``round`` wholesale
+    (and is not fusible); it runs on the parameter server
+    (``SimChannel``) only."""
+
+    fusible: bool = field(default=False, init=False, repr=False)
 
     c: Compressor = field(default_factory=Zero)
 
@@ -202,6 +254,21 @@ class DianaShift(ShiftRule):
         qpay, qm = encode_decode_workers(q, qnoise, diff - cm)
         return cm.add_(qm), self.c.wire_bits(cpay) + q.wire_bits(qpay)
 
+    def message_draws(self, q, noise, w):
+        cd = worker_draws(self.c, noise.with_part("c"), w)
+        qd = worker_draws(q, noise.with_part("q"), w)
+        return [{"c": c, "q": d} for c, d in zip(cd, qd)]
+
+    def message_leaf_worker(self, q, draw, g, h):
+        diff = g if h is None else g - h
+        if isinstance(self.c, Zero):      # message_leaf's shortcut
+            return _encode_decode(q, draw["q"], diff)
+        cm = _encode_decode(self.c, draw["c"], diff)
+        return cm + _encode_decode(q, draw["q"], diff - cm)
+
+    def message_bits_aot(self, q, wleaf_like):
+        return _bits_aot(self.c, wleaf_like) + _bits_aot(q, wleaf_like)
+
     def apply(self, wgrads, m, m_bar, h, h_bar, aux):
         # h and h_bar are updated IN PLACE (the reference rebinds them):
         # at full size a second copy of the (W, ...) shifts would not fit
@@ -222,7 +289,10 @@ class RandDianaShift(ShiftRule):
     (``dense_message_bits``).  Theorem 4: max{kappa(1 + omega/n), 1/p}.
 
     ``aux`` draws one uniform a worker (``aux_uniform``); a worker
-    refreshes where it is below ``p``, the reference's Bernoulli draw."""
+    refreshes where it is below ``p``, the reference's Bernoulli draw.
+    Not fusible: ``apply`` refreshes the shifts from the dense gradients."""
+
+    fusible: bool = field(default=False, init=False, repr=False)
 
     p: float = 0.1
 

@@ -15,7 +15,8 @@ Algorithm 1, in the wire formats the port runs (the reference's
                          accumulator.
 
 ``compressed_tree_mean`` dispatches between them from an aggregation
-mode; ``comm.channel.MeshChannel`` is the one caller.
+mode; ``comm.channel.MeshChannel`` (and so the overlap runtime's
+``AsyncChannel``, bucket by bucket) is the one caller.
 
 The mesh is a ``launch.mesh.HostMesh``: every position of the ``data``
 axis runs in this process, on one device, with its own ring buffer, and
@@ -338,11 +339,15 @@ def q8_ring_tree_mean(noise, tree: Tree, mesh, *,
 
 
 def compressed_tree_mean(wtree: Tree, mode: str, noise, mesh=None, *,
-                         q8_block_rows: Optional[int] = None) -> Tree:
+                         q8_block_rows: Optional[int] = None,
+                         leaf_indices: Optional[Sequence[int]] = None
+                         ) -> Tree:
     """Worker-mean of a stacked tree in the aggregation format ``mode``
     (one of ``AGGREGATION_MODES``; ``comm.channel.aggregation_mode_of``
     maps comm modes and configs to it).  ``q8_block_rows`` sets the fused
-    codec's scale-block rows (None = the kernel default)."""
+    codec's scale-block rows (None = the kernel default);
+    ``leaf_indices`` the global tree positions the ring's draws are bound
+    to (a bucket of the overlap runtime is a subtree)."""
     if mode == "dense":
         return dense_mean(wtree)
     if mode in ("q8_ring", "q8_ring_fused"):
@@ -353,7 +358,8 @@ def compressed_tree_mean(wtree: Tree, mode: str, noise, mesh=None, *,
                      else FusedQ8(block_rows=q8_block_rows))
         else:
             codec = Int8Stochastic()
-        return q8_ring_tree_mean(noise, wtree, mesh, codec=codec)
+        return q8_ring_tree_mean(noise, wtree, mesh, codec=codec,
+                                 leaf_indices=leaf_indices)
     if mode == "randk_shared":
         raise NotImplementedError(f"randk_shared is not ported yet: {_ITEM}")
     raise ValueError(f"unknown aggregation mode {mode!r}; have "

@@ -12,6 +12,7 @@ The ring chunks (``ring_chunk_layout``) follow the same rule.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -91,6 +92,14 @@ class FusedQ8(Unbiased):
         u = rand((rows_pad, LANE))
         q, scales = q8_quantize_2d(x2, u, block_rows=block)
         return {"q": q, "scale": scales}, {}
+
+    def payload_like(self, like: ShapeDtype):
+        _, block, rows_pad = q8_layout(math.prod(like.shape),
+                                       self.block_rows)
+        return {"q": torch.empty((rows_pad, LANE), dtype=torch.int8,
+                                 device="meta"),
+                "scale": torch.empty((rows_pad // block, 1),
+                                     dtype=torch.float32, device="meta")}
 
     def decode(self, payload, meta, like: ShapeDtype):
         d = 1

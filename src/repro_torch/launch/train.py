@@ -7,10 +7,15 @@ on one device), one shift-rule round through the channel
 (``rule.round``: message -> aggregate -> apply; the codec's encode and
 decode run the CUDA kernels on a GPU, and so do the hops of the
 ``q8_ring_fused`` aggregation over the mesh's ``data`` axis), then
-AdamW.  There is no
-per-rule math here.  The reference splits a PRNG key per step; the port
-draws the round's uniforms from the state's noise source
-(``comm.wire``) in the reference's order.
+AdamW.  The overlap modes (``q8_ring_overlap``, ``efbv_overlap``) run
+the round bucket by bucket (``comm.overlap``); ``q8_ring_fused_vjp``
+encodes each worker's messages inside its backward pass
+(``comm.fused_vjp``) and runs only the round's reduce/apply tail.
+There is no per-rule math here.  The reference splits a PRNG key per
+step; the port draws the round's uniforms from the state's noise source
+(``comm.wire``: by default ``AddressedNoise``, whose draws do not depend
+on the order of the calls), which the step moves to the next round at
+its end.
 
 State is updated in place (params, moments, shifts); see the modules
 that do it.
@@ -19,7 +24,8 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
           [--compressor natural|topk|randk|q8_block|...] \
           [--shift-rule diana|rand_diana|vr_gdci|...] \
-          [--comm-mode dense|q8_ring|q8_ring_fused|ef21|efbv] \
+          [--comm-mode dense|q8_ring|q8_ring_fused|ef21|efbv|
+                       q8_ring_overlap|efbv_overlap|q8_ring_fused_vjp] \
           [--drift-resync-every N] [--efbv-eta ETA] [--efbv-nu NU] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
 
@@ -35,8 +41,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.comm.channel import CHANNEL_MODES, make_channel, resync_h_bar
-from repro_torch.comm.wire import GeneratorNoise
+from repro_torch.comm import fused_vjp
+from repro_torch.comm.channel import (
+    CHANNEL_MODES,
+    FUSED_VJP_MODES,
+    make_channel,
+    resync_h_bar,
+)
+from repro_torch.comm.wire import AddressedNoise
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
 from repro_torch.core.compressors import f32_bits
@@ -66,7 +78,8 @@ class TrainState(NamedTuple):
     opt: Any
     h: Any              # worker-stacked shifts (None for stateless rules)
     h_bar: Any          # master aggregated shift (None if stateless)
-    noise: Any          # the rounds' uniform source (comm.wire)
+    noise: Any          # the rounds' uniform source (comm.wire), moved
+                        # to the next round at the end of every step
     step: int
     bits: torch.Tensor  # cumulative uplink bits, f32 0-d: on the CPU,
                         # on the device once a drawn count enters it
@@ -88,8 +101,40 @@ def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
         h, h_bar = rule.init(params, w), rule.init_bar(params)
     else:
         h = h_bar = None
-    return TrainState(params, opt, h, h_bar, GeneratorNoise(seed + 1, dev), 0,
-                      f32_bits())
+    return TrainState(params, opt, h, h_bar, AddressedNoise(seed + 1, dev),
+                      0, f32_bits())
+
+
+def worker_loss(cfg: ModelConfig, rule=None, q=None):
+    """One worker's ``loss_fn(params, batch) -> (loss, metrics)``.  With
+    ``rule`` and ``q`` (the fused mode) its batch carries the worker's
+    draws and shifts (``with_fused_draws``), and the params are tapped
+    with them: the gradient of the loss IS the worker's decoded wire
+    message (``comm.fused_vjp``)."""
+    def loss_fn(params, batch):
+        tap = None
+        if rule is not None:
+            batch = dict(batch)
+            draws, fh = batch.pop("fused_draws"), batch.pop("fused_h", None)
+            tap = lambda p: fused_vjp.encode_on_backward(  # noqa: E731
+                rule, q, p, draws, fh)
+        return M.train_loss(params, cfg, batch, param_tap=tap)
+
+    return loss_fn
+
+
+def with_fused_draws(wbatch, rule, q, state: TrainState, w: int):
+    """``wbatch`` (split per worker) with, per worker, its draw of every
+    leaf (row j of ``round_message_draws``) and its rows of the shifts,
+    riding the worker batch into ``worker_loss``."""
+    draws = fused_vjp.round_message_draws(rule, q, state.noise, state.params,
+                                          w)
+    wbatch = dict(wbatch, fused_draws=[[d[j] for d in draws]
+                                       for j in range(w)])
+    if state.h is not None:
+        wbatch["fused_h"] = [{k: v[j] for k, v in state.h.items()}
+                             for j in range(w)]
+    return wbatch
 
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
@@ -107,12 +152,21 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
     q, rule = (comp.make(learning_rate=tcfg.learning_rate) if comp.enabled
                else (None, None))
     iterate_rule = isinstance(rule, VRGDCI)
-
-    def loss_fn(params, batch):
-        return M.train_loss(params, cfg, batch)
+    fused = comp.enabled and comp.comm_mode in FUSED_VJP_MODES
+    if fused:
+        if iterate_rule:
+            raise ValueError(
+                "comm_mode 'q8_ring_fused_vjp' fuses GRADIENT-message "
+                "encode into the backward pass; the iterate-compression "
+                "rule 'vr_gdci' has no gradient message to fuse"
+            )
+        fused_vjp.check_fusible(rule)
+    loss_fn = worker_loss(cfg, rule, q) if fused else worker_loss(cfg)
 
     def train_step(state: TrainState, batch):
         wbatch = split_batch(batch, w)
+        if fused:
+            wbatch = with_fused_draws(wbatch, rule, q, state, w)
         grads, loss, metrics = per_worker_grads(loss_fn, state.params, wbatch)
         if not comp.enabled:
             g_bar = channel.reduce_mean(state.noise, grads)
@@ -122,19 +176,25 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
             params, h, h_bar, step_bits = rule.round(
                 state.noise, state.params, grads, state.h, state.h_bar,
                 channel)
+            state.noise.next_round()
             new_state = TrainState(params, state.opt, h, h_bar, state.noise,
                                    state.step + 1, state.bits + step_bits)
             return new_state, {**metrics, "loss": loss,
                                "bits": new_state.bits}
         else:
-            g_bar, h, h_bar, step_bits = rule.round(
-                q, state.noise, grads, state.h, state.h_bar, channel)
+            if fused:   # ``grads`` are the decoded messages already
+                g_bar, h, h_bar, step_bits = channel.fused_round(
+                    rule, q, state.noise, grads, state.h, state.h_bar)
+            else:
+                g_bar, h, h_bar, step_bits = rule.round(
+                    q, state.noise, grads, state.h, state.h_bar, channel)
             # bound the shift-tracking drift of lossy aggregation
             h_bar = resync_h_bar(h, h_bar, state.step,
                                  comp.drift_resync_every)
             bits = state.bits + step_bits
         del grads
         params, opt = optimizer.update(g_bar, state.opt, state.params)
+        state.noise.next_round()
         new_state = TrainState(params, opt, h, h_bar, state.noise,
                                state.step + 1, bits)
         return new_state, {**metrics, "loss": loss, "bits": bits}
@@ -158,7 +218,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--comm-mode", "--comm_mode", dest="comm_mode",
                     default="dense", choices=list(COMM_MODES),
                     help="channel aggregation format; ef21/efbv select the "
-                         "error-feedback modes (implying their rule)")
+                         "error-feedback modes (implying their rule); "
+                         "q8_ring_overlap/efbv_overlap the bucketed overlap "
+                         "runtime over the fused q8 ring (efbv_overlap "
+                         "implying efbv); q8_ring_fused_vjp encodes the "
+                         "messages in the backward pass")
     ap.add_argument("--drift-resync-every", "--drift_resync_every",
                     dest="drift_resync_every", type=int, default=0,
                     help="every N rounds resync h_bar from a dense reduce "

@@ -159,8 +159,17 @@ def forward_train(params: Params, cfg: ModelConfig, batch
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def train_loss(params: Params, cfg: ModelConfig, batch):
-    """Next-token cross-entropy (+ aux).  Returns ``(loss, metrics)``."""
+def train_loss(params: Params, cfg: ModelConfig, batch, param_tap=None):
+    """Next-token cross-entropy (+ aux).  Returns ``(loss, metrics)``.
+
+    ``param_tap``: an identity-valued wrapper applied to the params
+    before the forward pass.  The fused backward encode
+    (``comm.fused_vjp.encode_on_backward``) taps every leaf here, once,
+    so its cotangent -- summed over all of the leaf's uses -- is turned
+    into the worker's wire message as backprop produces it.  ``None``
+    is the untapped path."""
+    if param_tap is not None:
+        params = param_tap(params)
     logits, aux = forward_train(params, cfg, batch)
     tokens = batch["tokens"]
     loss = L.softmax_xent(logits[:, :-1], tokens[:, 1:])

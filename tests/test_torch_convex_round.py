@@ -156,6 +156,9 @@ class ReplayNoise:
         assert a.shape == tuple(shape)
         return torch.from_numpy(np.array(a, F32))
 
+    def next_round(self):
+        """A training step ends its round; the replay goes on in order."""
+
     @property
     def done(self):
         return self.at == len(self.draws)

@@ -1,0 +1,374 @@
+"""Port parity for the fused backward encode (``repro_torch.comm.fused_vjp``)
+and the order-free noise source it rests on (``comm.wire.AddressedNoise``).
+
+* ``message_leaf_worker`` row by row is BITWISE ``message_leaf`` (fixed,
+  DIANA with C = Zero and with C = TopK, EF21, EF-BV; each with q8_block
+  and natural), and ``message_bits_aot`` its bits.
+* The gradient through ``message_tag`` and ``encode_on_backward`` on a
+  small loss (a tied leaf included) is bitwise the reference's, the
+  reference's uniforms replayed by address (``KeyedReplay``).
+* ``check_fusible`` accepts and rejects the reference's rules.
+* ``fused_round`` on the emitted messages is bitwise ``shift_round`` on
+  the gradients, bits included, through ``SimChannel`` and the per-leaf
+  ``AsyncChannel`` (dense and the q8 ring).
+* Three steps of the smoke config over ``HostMesh(data=4)`` in
+  ``q8_ring_fused_vjp``, ``q8_ring_overlap`` and ``q8_ring_fused`` give
+  bitwise equal params, moments and shifts; ``efbv_overlap`` the EF-BV
+  step's in ``q8_ring_fused``.  The reference's own step fails on a
+  multi-device host mesh in every ring mode under jax 0.9.0 (ROADMAP,
+  standing notes), so the modes are held against each other and the
+  round against the reference (``test_torch_overlap.py``).
+"""
+
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import fused_vjp as JF
+from repro.core.compressors import make_compressor as jax_compressor
+from repro.core.iterate_comp import VRGDCI as JaxVRGDCI
+from repro.core.shift_rules import make_shift_rule as jax_rule
+from repro.kernels.q8ring.ops import q8_layout
+from repro_torch.comm import fused_vjp as F
+from repro_torch.comm.channel import SimChannel
+from repro_torch.comm.overlap import AsyncChannel
+from repro_torch.comm.wire import AddressedNoise, LeafNoise
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import CompressionConfig, TrainConfig
+from repro_torch.core.compressors import TopK, make_compressor
+from repro_torch.core.iterate_comp import VRGDCI
+from repro_torch.core.shift_rules import make_shift_rule
+from repro_torch.data.tokens import TokenStream
+from repro_torch.launch.mesh import HostMesh
+from repro_torch.launch.train import build_train_step, init_state
+
+from test_torch_overlap import KeyedReplay, assert_bitwise
+
+W = 4
+
+
+def _rule(name):
+    if name == "diana_topk":
+        return make_shift_rule("diana", alpha=0.125, c=TopK(0.25))
+    if name == "diana":
+        return make_shift_rule("diana", alpha=0.125)
+    if name == "efbv":
+        return make_shift_rule("efbv", eta=0.5, nu=0.75)
+    return make_shift_rule(name)
+
+
+def _leaves(seed, w=W):
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (40,), "b": (3, 5), "c": (), "d": (2, 700), "e": (300,)}
+    return {k: torch.from_numpy(
+        (rng.standard_normal((w, *s)) * 0.1).astype(np.float32))
+        for k, s in shapes.items()}
+
+
+# -- the order-free noise source ------------------------------------------------
+
+
+def test_addressed_noise_is_order_free():
+    """Equal addresses give equal draws in any order of the calls; other
+    addresses, and the next round, other draws."""
+    calls = [("uniform", (i, j, p)) for i in range(3) for j in (0, 1, None)
+             for p in (None, "c", "q")]
+    calls += [("ring_uniform", (i, hop)) for i in range(3) for hop in range(4)]
+    calls += [("permutation", (i, j, None)) for i in range(2) for j in (0, 1)]
+    calls += [("aux_uniform", ())]
+
+    def draw(noise, kind, addr):
+        if kind == "uniform":
+            return noise.uniform(*addr[:2], (5, 3), part=addr[2])
+        if kind == "permutation":
+            return noise.permutation(*addr[:2], 17, part=addr[2])
+        if kind == "aux_uniform":
+            return noise.aux_uniform((4,))
+        return noise.ring_uniform(*addr, (5, 3))
+
+    def run(order, rounds=0):
+        noise = AddressedNoise(9, "cpu")
+        for _ in range(rounds):
+            noise.next_round()
+        return {c: draw(noise, c[0], c[1]) for c in order}
+
+    base = run(calls)
+    shuffled = list(calls)
+    random.Random(1).shuffle(shuffled)
+    again = run(shuffled + shuffled)        # asked twice, in another order
+    for c in calls:
+        assert torch.equal(base[c], again[c]), c
+    firsts = [v.reshape(-1)[:3].tolist() for v in base.values()]
+    assert len({tuple(f) for f in firsts}) == len(firsts)
+    nxt = run(calls, rounds=1)
+    for c in calls:
+        assert not torch.equal(base[c], nxt[c]), c
+    assert all(v.dtype == torch.float32 and 0 <= v.min() and v.max() < 1
+               for (kind, _), v in base.items() if kind != "permutation")
+
+
+# -- message_leaf_worker -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("codec", ["q8_block", "natural"])
+@pytest.mark.parametrize("rule_name", ["fixed", "diana", "diana_topk",
+                                       "ef21", "efbv"])
+def test_worker_rows_are_message_leaf(rule_name, codec):
+    rule, q = _rule(rule_name), make_compressor(codec)
+    g, h = _leaves(1), _leaves(2)
+    for i, (k, gl) in enumerate(g.items()):
+        hl = h[k] if rule.stateful else None
+        noise = AddressedNoise(4, "cpu")
+        m, bits = rule.message_leaf(q, LeafNoise(noise, i), gl, hl)
+        draws = rule.message_draws(q, LeafNoise(noise, i), W)
+        rows = torch.stack([rule.message_leaf_worker(
+            q, draws[j], gl[j], None if hl is None else hl[j])
+            for j in range(W)])
+        assert_bitwise(rows, m, f"{rule_name} {codec} {k}")
+        assert rule.message_bits_aot(q, gl) == bits
+
+
+# -- the tag's gradient against the reference's ---------------------------------------
+
+
+def _reference_draws(jrule, params, key, w):
+    """The reference's FusedQ8 uniforms along its fused key chain
+    (``round_message_keys``: the round key's first 3-split row, the leaf
+    fold, the rule's worker keys), by the port's address (leaf, worker,
+    part): DIANA's Q half is part "q", a one-part message None."""
+    keys = JF.round_message_keys(jrule, jax_compressor("q8_block"), key,
+                                 params, w)
+    diana = isinstance(keys[0], dict)
+    out = {}
+    for i, (leaf, lk) in enumerate(zip(jax.tree_util.tree_leaves(params),
+                                       keys)):
+        rows = q8_layout(int(np.prod(leaf.shape)))[2]
+        wk = lk["q"] if diana else lk
+        for j in range(w):
+            out[(i, j, "q" if diana else None)] = np.asarray(
+                jax.random.uniform(wk[j], (rows, 128)))
+    return keys, out
+
+
+@pytest.mark.parametrize("rule_name", ["fixed", "diana"])
+def test_tagged_gradient_matches_reference(rule_name):
+    """Each worker's gradient of ``sum(c_a * a) + sum(c_a2 * a) +
+    sum(c_b * b)`` through ``encode_on_backward`` (leaf ``a`` used twice,
+    as qwen3's tied embedding is), and of one leaf through
+    ``message_tag`` alone: bitwise the reference's, with its uniforms."""
+    rng = np.random.default_rng(3)
+    params = {"a": rng.standard_normal((300,)).astype(np.float32),
+              "b": rng.standard_normal((3, 50)).astype(np.float32)}
+    cot = {k: (rng.standard_normal((W, 3, *p.shape)) * 0.1).astype(
+        np.float32) for k, p in params.items()}
+    h = {k: (rng.standard_normal((W, *p.shape)) * 0.01).astype(np.float32)
+         for k, p in params.items()} if rule_name == "diana" else None
+    key = jax.random.PRNGKey(8)
+    jrule = (jax_rule("diana", alpha=0.125) if rule_name == "diana"
+             else jax_rule("fixed"))
+    jq = jax_compressor("q8_block")
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    keys, draws = _reference_draws(jrule, jparams, key, W)
+    rule, q = _rule(rule_name), make_compressor("q8_block")
+
+    def jloss(p, c):
+        return (jnp.vdot(c["a"][0], p["a"]) + jnp.vdot(c["a"][1], p["a"])
+                + jnp.vdot(c["b"][0], p["b"]))
+
+    def tloss(p, c):
+        return ((c["a"][0] * p["a"]).sum() + (c["a"][1] * p["a"]).sum()
+                + (c["b"][0] * p["b"]).sum())
+
+    noise = KeyedReplay(draws, {})
+    tdraws = F.round_message_draws(rule, q, noise, params, W)
+    for j in range(W):
+        kj = jax.tree_util.tree_map(lambda k: k[j], keys)
+        hj = None if h is None else {k: jnp.asarray(v[j])
+                                     for k, v in h.items()}
+        cj = {k: jnp.asarray(v[j]) for k, v in cot.items()}
+        want = jax.grad(lambda p: jloss(JF.encode_on_backward(
+            jrule, jq, p, kj, hj), cj))(jparams)
+        tp = {k: torch.from_numpy(v.copy()).requires_grad_()
+              for k, v in params.items()}
+        th = None if h is None else {k: torch.from_numpy(v[j].copy())
+                                     for k, v in h.items()}
+        tc = {k: torch.from_numpy(v[j].copy()) for k, v in cot.items()}
+        tapped = F.encode_on_backward(rule, q, tp, [d[j] for d in tdraws],
+                                      th)
+        assert all(torch.equal(tapped[k], tp[k]) for k in tp)  # identity
+        got = torch.autograd.grad(tloss(tapped, tc), list(tp.values()))
+        for (k, w_), g in zip(want.items(), got):
+            np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                          np.asarray(w_).view(np.int32),
+                                          err_msg=f"worker {j} leaf {k}")
+    assert noise.done
+    # one leaf through message_tag alone, worker 0's draw of leaf "b"
+    noise = KeyedReplay({k: v for k, v in draws.items() if k[:2] == (1, 0)},
+                        {})
+    d0 = F.round_message_draws(rule, q, noise, params, W)[1][0]
+    hb = None if h is None else torch.from_numpy(h["b"][0].copy())
+    x = torch.from_numpy(params["b"].copy()).requires_grad_()
+    c = torch.from_numpy(cot["b"][0, 0].copy())
+    (got,) = torch.autograd.grad((c * F.message_tag(rule, q, x, d0, hb)
+                                  ).sum(), [x])
+    k0 = jax.tree_util.tree_map(lambda k: k[0], keys[1])
+    want = jax.grad(lambda p: jnp.vdot(jnp.asarray(c.numpy()), JF.message_tag(
+        jrule, jq, p, k0, None if hb is None else jnp.asarray(hb.numpy()))))(
+        jnp.asarray(params["b"]))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    assert noise.done
+
+
+def test_encode_on_backward_validates_draw_count():
+    rule, q = _rule("fixed"), make_compressor("natural")
+    params = {"a": torch.zeros(3), "b": torch.zeros(4)}
+    draws = F.round_message_draws(rule, q, AddressedNoise(0, "cpu"),
+                                  {"a": params["a"]}, 2)
+    with pytest.raises(ValueError, match="leaf"):
+        F.encode_on_backward(rule, q, params, [d[0] for d in draws], None)
+
+
+@pytest.mark.parametrize("name", ["fixed", "dcgd", "diana", "ef21", "efbv",
+                                  "star", "rand_diana", "vr_gdci"])
+def test_check_fusible_matches_reference(name):
+    if name == "vr_gdci":
+        ref, port = JaxVRGDCI(), VRGDCI(q=make_compressor("natural"))
+    else:
+        ref, port = jax_rule(name), make_shift_rule(name)
+    try:
+        JF.check_fusible(ref)
+        ref_error = None
+    except ValueError as e:
+        ref_error = str(e)
+    if ref_error is None:
+        F.check_fusible(port)
+    else:
+        with pytest.raises(ValueError) as e:
+            F.check_fusible(port)
+        assert str(e.value) == ref_error
+
+
+# -- fused_round == shift_round ----------------------------------------------------
+
+
+def _messages(rule, q, seed, g, h):
+    """What the fused backward emits: each worker's row of every leaf
+    through ``message_leaf_worker`` with ``round_message_draws``."""
+    draws = F.round_message_draws(rule, q, AddressedNoise(seed, "cpu"), g, W)
+    return {k: torch.stack([rule.message_leaf_worker(
+        q, d[j], gl[j], None if h is None else h[k][j]) for j in range(W)])
+        for (k, gl), d in zip(g.items(), draws)}
+
+
+@pytest.mark.parametrize("rule_name", ["fixed", "dcgd", "diana", "ef21",
+                                       "efbv"])
+def test_fused_round_is_shift_round(rule_name):
+    rule, q = _rule(rule_name), make_compressor("q8_block")
+    g = _leaves(1)
+    h0 = _leaves(2) if rule.stateful else None
+    hb0 = None if h0 is None else {k: v.mean(0) for k, v in h0.items()}
+
+    def fresh(t):
+        return None if t is None else {k: v.clone() for k, v in t.items()}
+
+    msgs = _messages(rule, q, 6, g, h0)
+    bits = F.fused_message_bits(rule, q, g)
+    for channel in (SimChannel(),
+                    AsyncChannel(mode="dense", per_leaf=True),
+                    AsyncChannel(mode="q8_ring_fused", mesh=HostMesh(data=W),
+                                 per_leaf=True)):
+        want = channel.shift_round(rule, q, AddressedNoise(6, "cpu"), g,
+                                   fresh(h0), fresh(hb0))
+        got = channel.fused_round(rule, q, AddressedNoise(6, "cpu"), msgs,
+                                  fresh(h0), fresh(hb0))
+        for a, b in zip(got[:3], want[:3]):
+            if b is not None:
+                assert_bitwise(a, b, f"{rule_name} {type(channel).__name__}")
+        assert got[3].item() == want[3].item()
+        assert got[3].item() == np.float32(bits)
+
+
+def test_fused_round_rejects_non_fusible_rule():
+    rule = make_shift_rule("rand_diana")
+    g = _leaves(1)
+    with pytest.raises(ValueError, match="not fusible"):
+        SimChannel().fused_round(rule, make_compressor("natural"),
+                                 AddressedNoise(0, "cpu"), g, g, None)
+
+
+# -- the training step ------------------------------------------------------------------
+
+
+def _steps(mode, rule="diana", steps=3):
+    cfg = get_smoke_config("qwen3-0.6b").with_(dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-2, total_steps=steps, warmup_steps=1,
+                       compression=CompressionConfig(
+                           compressor="q8_block", shift_rule=rule,
+                           comm_mode=mode, shift_alpha=0.125,
+                           overlap_bucket_bytes=16384))
+    state = init_state(0, cfg, tcfg, W, "cpu")
+    step = build_train_step(cfg, tcfg, W, HostMesh(data=W, device="cpu"))
+    stream = TokenStream(cfg, 16, 8)
+    bits = []
+    for i in range(steps):
+        state, m = step(state, stream.batch(i, "cpu"))
+        bits.append(m["bits"].item())
+    return state, bits
+
+
+def _assert_states_bitwise(a, b, what):
+    assert_bitwise(a.params, b.params, f"{what} params")
+    assert_bitwise(a.opt.m, b.opt.m, f"{what} m")
+    assert_bitwise(a.opt.v, b.opt.v, f"{what} v")
+    assert_bitwise(a.h, b.h, f"{what} h")
+    assert_bitwise(a.h_bar, b.h_bar, f"{what} h_bar")
+
+
+def test_three_steps_bitwise_across_modes(monkeypatch):
+    """``q8_ring_fused_vjp`` and ``q8_ring_overlap`` against
+    ``q8_ring_fused`` (DIANA), ``efbv_overlap`` against EF-BV in
+    ``q8_ring_fused``: 3 smoke steps over 4 ring positions, every param,
+    moment and shift bitwise equal; the bits are the same structural
+    counts (below 2^24 a step, so the bucket order does not show).  The
+    overlap steps run several buckets (a 16 KiB budget); the fused steps
+    never run the post-hoc message."""
+    from repro_torch.core.shift_rules import ShiftRule
+
+    leaves = _steps("q8_ring_fused", steps=0)[0].params
+    assert 1 < len(AsyncChannel(bucket_bytes=16384)._plan(
+        {k: v.expand(W, *v.shape) for k, v in leaves.items()})) < len(leaves)
+    ring, ring_bits = _steps("q8_ring_fused")
+    got, bits = _steps("q8_ring_overlap")
+    _assert_states_bitwise(got, ring, "q8_ring_overlap")
+    assert bits == ring_bits
+
+    def no_posthoc(*args, **kw):
+        raise AssertionError("the fused step ran the post-hoc message")
+
+    monkeypatch.setattr(ShiftRule, "message_leaf", no_posthoc)
+    monkeypatch.setattr(type(_rule("diana")), "message_leaf", no_posthoc)
+    got, bits = _steps("q8_ring_fused_vjp")
+    _assert_states_bitwise(got, ring, "q8_ring_fused_vjp")
+    assert bits == ring_bits
+    monkeypatch.undo()
+    efbv, efbv_bits = _steps("q8_ring_fused", rule="efbv", steps=2)
+    got, bits = _steps("efbv_overlap", steps=2)
+    _assert_states_bitwise(got, efbv, "efbv_overlap")
+    assert bits == efbv_bits
+
+
+@pytest.mark.parametrize("rule,match", [("rand_diana", "not fusible"),
+                                        ("vr_gdci", "no gradient message")])
+def test_fused_step_rejects_non_fusible_rules(rule, match):
+    cfg = get_smoke_config("qwen3-0.6b").with_(dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=1,
+                       compression=CompressionConfig(
+                           comm_mode="q8_ring_fused_vjp", shift_rule=rule,
+                           compressor="randk"))
+    with pytest.raises(ValueError, match=match):
+        build_train_step(cfg, tcfg, W, HostMesh(data=W))

@@ -221,9 +221,10 @@ def test_three_ring_steps_track_dense():
                                   "q8_ring_fused_vjp"])
 def test_comm_modes_match_reference(mode):
     """The comm-mode normalisation is the reference's; the ported modes
-    build a MeshChannel over the mesh in their aggregation format (ef21
-    and efbv: dense), the modes not ported yet raise naming their ROADMAP
-    item."""
+    build a channel over the mesh in their aggregation format (ef21 and
+    efbv: dense; the overlap and fused-VJP modes: the q8 ring, through
+    the AsyncChannel), the modes not ported yet raise naming their
+    ROADMAP item."""
     from repro.comm.channel import aggregation_mode_of as jax_agg
     from repro.configs.base import CompressionConfig as JaxComp
     from repro_torch.comm.channel import aggregation_mode_of, make_channel
@@ -234,7 +235,8 @@ def test_comm_modes_match_reference(mode):
                                  ).aggregation_mode == JaxComp(
             comm_mode=mode, enabled=enabled).aggregation_mode
     mesh = HostMesh(data=2)
-    if mode in ("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv"):
+    if mode in ("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv",
+                "q8_ring_overlap", "efbv_overlap", "q8_ring_fused_vjp"):
         ch = make_channel(mode, mesh)
         assert (ch.mode, ch.mesh) == (aggregation_mode_of(mode), mesh)
     elif mode != "sim":

@@ -61,6 +61,9 @@ class ReplayNoise:
         assert (l, w) == (leaf, worker) and u.shape == tuple(shape)
         return torch.from_numpy(u.copy())
 
+    def next_round(self):
+        """The step ends its round; the replayed draws go on in order."""
+
 
 def shift_round_uniforms(key, params, diana=True, w=W):
     """The uniforms the reference's ``Channel.shift_round`` draws with
