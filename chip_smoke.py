@@ -87,7 +87,24 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    times, every output bitwise equal to its plain version, and the
    natural output equal to ``h + NaturalCompression`` of ``g - h`` with
    the same uniforms wherever ``|g - h| >= 2^-126``.
-11. The convex path (``core.simulate``): the theorem tests' runs on the
+11. The serve entry point (``launch.serve``, ``serving``): the CLI's
+   greedy path on full-size qwen3-0.6b (batch 4, 16 + 32 ticks) with a
+   ``q8_block`` model broadcast, each q8 kernel launched exactly once a
+   leaf (13) and the broadcast's bits the structural count; its decode
+   logits at every position against ``forward_train``'s within
+   DECODE_TOL, and its greedy tokens against their argmax by the margin
+   rule.  rwkv6-3b (full width, RWKV_LAYERS layers): the greedy path
+   timed, every layer's WKV6 kernel forward held against the plain
+   ``wkv_step`` chain on its inputs within WKV_TOL, decode against the
+   forward in f64.  The engine: 6 requests over 2 slots, each output
+   against the request decoded alone by the margin rule.  The delta
+   stream at full size (qwen3-0.6b trainer, 1 worker, batch 4, seq 64,
+   6 steps, a publish every 2 to 2 replicas, K = 4) for the dense, q8
+   and natural model wires: bytes a publish the structural count, every
+   replica bitwise the trainer (dense) or the publisher's ``h_bar`` by
+   per-leaf digests.  Then the smoke ``run_fleet_demo`` of each wire
+   against the structural row of the reference's ``BENCH_serve_delta``.
+12. The convex path (``core.simulate``): the theorem tests' runs on the
    paper's ridge instance (m = 100, d = 80, 10 workers, noise 10) and
    Rand-DIANA on logistic regression (m = 300, d = 60), each with its
    test's step size and step count, on the card from a recorded
@@ -124,6 +141,7 @@ the checkout's twice, the others in reverse) at the embedding leaf
 of the same bytes).
 """
 
+import gc
 import json
 import math
 import statistics
@@ -1348,24 +1366,52 @@ class RefreshCount:
         self.source.next_round()
 
 
-def state_digests(state):
-    """Per-leaf SHA-256 of host copies of the params, the shifts and the
-    master shift, leaf by leaf (two full states do not fit beside a step
-    on the card), each leaf hashed in 8 pieces on 8 threads."""
+def tree_digests(tree, prefix=""):
+    """Per-leaf SHA-256 of host copies of a tree's leaves, leaf by leaf
+    (two full states do not fit beside a step on the card), each leaf
+    hashed in 8 pieces on 8 threads."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
 
     out = {}
     with ThreadPoolExecutor(8) as pool:
-        for name in ("params", "h", "h_bar"):
-            for k, v in getattr(state, name).items():
-                host = v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
-                parts = [pool.submit(lambda a: hashlib.sha256(a).hexdigest(),
-                                     piece)
-                         for piece in np.array_split(host, 8)]
-                out[f"{name}/{k}"] = tuple(f.result() for f in parts)
-                del host
+        for k, v in tree.items():
+            host = v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+            parts = [pool.submit(lambda a: hashlib.sha256(a).hexdigest(),
+                                 piece)
+                     for piece in np.array_split(host, 8)]
+            out[prefix + k] = tuple(f.result() for f in parts)
+            del host
     return out
+
+
+def state_digests(state):
+    """``tree_digests`` of the params, the shifts and the master shift."""
+    out = {}
+    for name in ("params", "h", "h_bar"):
+        out.update(tree_digests(getattr(state, name), name + "/"))
+    return out
+
+
+def reset_launches():
+    """Every kernel wrapper by name, each launch count set to 0 (and the
+    dequant's accumulating count)."""
+    from repro_torch.kernels.natural.kernel import shifted_natural_2d
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.topk.kernel import block_topk_2d
+    from repro_torch.kernels.wkv6 import kernel as WK
+
+    wrappers = {"q8_quantize_2d": K.q8_quantize_2d,
+                "q8_quantize_chunk_3d": K.q8_quantize_chunk_3d,
+                "q8_dequant_add_2d": K.q8_dequant_add_2d,
+                "wkv6_forward": WK.wkv6_forward,
+                "wkv6_backward": WK.wkv6_backward,
+                "shifted_natural_2d": shifted_natural_2d,
+                "block_topk_2d": block_topk_2d}
+    for fn in wrappers.values():
+        fn.launches = 0
+    K.q8_dequant_add_2d.acc_launches = 0
+    return wrappers
 
 
 def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
@@ -1383,10 +1429,7 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     from repro_torch.comm.overlap import plan_buckets
     from repro_torch.core.compressors import ShapeDtype
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.kernels.natural.kernel import shifted_natural_2d
     from repro_torch.kernels.q8ring import kernel as K
-    from repro_torch.kernels.topk.kernel import block_topk_2d
-    from repro_torch.kernels.wkv6 import kernel as WK
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
@@ -1404,16 +1447,7 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     batches = [stream.batch(i, "cuda") for i in range(STEPS + 1)]
     torch.cuda.synchronize()
 
-    wrappers = {"q8_quantize_2d": K.q8_quantize_2d,
-                "q8_quantize_chunk_3d": K.q8_quantize_chunk_3d,
-                "q8_dequant_add_2d": K.q8_dequant_add_2d,
-                "wkv6_forward": WK.wkv6_forward,
-                "wkv6_backward": WK.wkv6_backward,
-                "shifted_natural_2d": shifted_natural_2d,
-                "block_topk_2d": block_topk_2d}
-    for fn in wrappers.values():
-        fn.launches = 0
-    K.q8_dequant_add_2d.acc_launches = 0
+    wrappers = reset_launches()
     step_s, losses = [], []
     for i in range(STEPS):
         t0 = time.perf_counter()
@@ -1592,6 +1626,428 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
 
 
 # -- the convex path (Algorithm 1 and 2 on the paper's problems) ------------
+
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+DECODE_TOL = 1e-4           # decode logits vs a full-sequence forward's
+                            # on the same tokens, relative to the decode
+                            # logits (RWKV-6: in f64, against the forward
+                            # through the plain recurrence; its WKV6 kernel
+                            # is held layer by layer within WKV_TOL)
+FLEET_WIRES = ("dense", "q8", "natural")
+FLEET = dict(steps=6, publish_every=2, replicas=2, stale_k=4, batch=4,
+             seq=64, lr=1e-2, requests=6, gen_len=8, max_batch=2,
+             cache_len=64)
+#: BENCH_serve_delta's structural row (experiments/obs/baseline.json) at
+#: the smoke size, model-wire bytes per publish
+SMOKE_DELTA_BYTES = {"dense": 1444864.0, "q8": 361268.0,
+                     "natural": 406368.0}
+SMOKE_SYNC_BYTES, SMOKE_GRAD_BYTES = 406368.0, 1444864.0
+
+
+def decode_logits(cfg, params, tokens):
+    """Teacher-forced decode of ``tokens`` (B, T) through a cache of T
+    slots: every position's logits, (B, T, V)."""
+    from repro_torch.models import model as M
+
+    state = M.make_decode_state(cfg, tokens.shape[0], tokens.shape[1],
+                                tokens.device)
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, state = M.decode_step(params, cfg, tokens[:, t:t + 1], state,
+                                      t)
+        out.append(logits[:, 0])
+    return torch.stack(out, 1)
+
+
+def check_decode_against_forward(what, cfg, params, tokens, fwd=None):
+    """Decode's logits at every position against the full-sequence
+    forward's on the same tokens (``fwd``, default ``forward_train``'s):
+    |forward - decode| <= DECODE_TOL (1 + |decode|).  Returns the decode
+    logits."""
+    from repro_torch.models import model as M
+
+    with torch.no_grad():
+        dec = decode_logits(cfg, params, tokens)
+        if fwd is None:
+            fwd, _ = M.forward_train(params, cfg, {"tokens": tokens})
+    err = (fwd - dec).abs()
+    share = (err / (DECODE_TOL * (1 + dec.abs()))).max().item()
+    check(share <= 1 and bool(torch.isfinite(dec).all()),
+          f"{what}: decode logits off the forward's at "
+          f"{int((err > DECODE_TOL * (1 + dec.abs())).sum())} of "
+          f"{dec.numel()} entries (max |diff| {err.max().item():.3e})")
+    log(f"{what}: decode logits at all {tokens.shape[1]} positions x "
+        f"{tokens.shape[0]} rows equal the forward's within "
+        f"{DECODE_TOL} (1 + |decode|): max |diff| {err.max().item():.3e} at "
+        f"|logits| <= {dec.abs().max().item():.3f}, at most {share:.3f} of "
+        f"the bound")
+    return dec
+
+
+def wkv_plain_scan(r, k, v, w, u):
+    """The WKV recurrence from a zero state as decode runs it: the plain
+    ``wkv_step`` chain (f32, as the reference's)."""
+    from repro_torch.models import rwkv6 as R6
+
+    b, t, h, dk = r.shape
+    st = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
+                     device=r.device)
+    ys = []
+    for i in range(t):
+        y, st = R6.wkv_step(r[:, i], k[:, i], v[:, i], w[:, i], u, st)
+        ys.append(y)
+    return torch.stack(ys, 1), st
+
+
+def forward_with_scan(cfg, params, tokens, scan):
+    """``forward_train``'s logits with the model's WKV recurrence
+    (``models.rwkv6.wkv_scan``) replaced by ``scan`` for the call."""
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv6 as R6
+
+    kernel_scan = R6.wkv_scan
+    try:
+        R6.wkv_scan = scan
+        with torch.no_grad():
+            return M.forward_train(params, cfg, {"tokens": tokens})[0]
+    finally:
+        R6.wkv_scan = kernel_scan
+
+
+def top2_margin(logits):
+    """(top-1 minus top-2 logit, |top-1|) along the last axis."""
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1], top[..., 0].abs()
+
+
+def margin_rule(got, want, margin, scale):
+    """The margin rule: generated tokens must agree wherever the
+    reference run's top-2 margin exceeds 2 DECODE_TOL (1 + |top-1|) (no
+    two sets of logits within the tolerance of each other can pick
+    differently there); at the first near tie where they differ, the
+    two trajectories part and the comparison stops.  Returns (tokens
+    compared, whether it stopped at a near tie); fails on a token that
+    differs past a clear margin."""
+    for t, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            check(margin[t] <= 2 * DECODE_TOL * (1 + scale[t]),
+                  f"token {t}: {g} != {w} at a top-2 margin of "
+                  f"{margin[t]:.3e}")
+            return t, True
+    return len(want), False
+
+
+def offline_greedy(cfg, params, prompt, n_new, cache_len=64):
+    """One request decoded alone (batch 1): its generated tokens and, at
+    each, the top-2 margin and |top-1| of the logits that chose it."""
+    from repro_torch.models import model as M
+
+    state = M.make_decode_state(cfg, 1, cache_len, "cuda")
+    out, margins, scales = [], [], []
+    for t in range(len(prompt) + n_new - 1):
+        cur = prompt[t] if t < len(prompt) else out[-1]
+        logits, state = M.decode_step(
+            params, cfg, torch.tensor([[cur]], device="cuda"), state, t)
+        if t >= len(prompt) - 1:
+            m, sc = top2_margin(logits[0, -1])
+            out.append(int(logits[0, -1].argmax()))
+            margins.append(m.item())
+            scales.append(sc.item())
+    return out, margins, scales
+
+
+def live_publish_bits(codec, cfg):
+    """A publish's bits as the stream counts them: each leaf's structural
+    payload bits (``payload_like``) added to an f32 counter in leaf
+    order, as the reference's counter adds them."""
+    from repro_torch.core.compressors import ShapeDtype, f32_bits
+    from repro_torch.models.model import param_specs
+
+    bits = f32_bits()
+    for _, shape, _ in param_specs(cfg):
+        like = ShapeDtype(shape, torch.float32, torch.device("meta"))
+        bits = bits + f32_bits(codec.wire_bits(codec.payload_like(like)))
+    return bits.item()
+
+
+def phase_serve(qwen, rwkv):
+    """The serve entry point on the card: the CLI's greedy path on
+    full-size qwen3-0.6b with a ``q8_block`` model broadcast (the two q8
+    kernels, counted), decode against the training forward for qwen3 and
+    rwkv6-3b, the continuous-batching engine against requests decoded
+    alone, and the trainer -> fleet delta stream at full size for the
+    dense, q8 and natural model wires, then the smoke ``run_fleet_demo``
+    against the baseline's structural row.  Returns the serve path's
+    kernel launches."""
+    from repro_torch.comm.channel import SimChannel
+    from repro_torch.comm.transport import build_transport, wire_flag_codec
+    from repro_torch.comm.wire import AddressedNoise
+    from repro_torch.configs.base import CompressionConfig, TrainConfig
+    from repro_torch.core.compressors import ShapeDtype, make_compressor
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.wkv6 import kernel as WK
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.train import build_train_step, init_state
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv6 as R6
+    from repro_torch.models.model import param_specs
+    from repro_torch.serving import (
+        Engine,
+        Request,
+        TrainerFleetBridge,
+        run_fleet_demo,
+    )
+
+    t_phase = time.perf_counter()
+    # -- 1. the CLI's greedy path, qwen3-0.6b full size --------------------
+    torch.cuda.synchronize()
+    wrappers = reset_launches()
+    res = serve.main(["--arch", "qwen3-0.6b", "--batch", str(SERVE_BATCH),
+                      "--prompt-len", str(SERVE_PROMPT), "--gen-len",
+                      str(SERVE_GEN), "--broadcast-compressor", "q8_block"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    leaves = len(res.params)
+    expect = dict.fromkeys(wrappers, 0)
+    expect.update(q8_quantize_2d=leaves, q8_dequant_add_2d=leaves)
+    check(launches == expect and K.q8_dequant_add_2d.acc_launches == 0,
+          f"serve: launches {launches}, expected {expect}")
+    want_bits = live_publish_bits(make_compressor("q8_block"), qwen)
+    check(res.bits == want_bits,
+          f"serve: broadcast bits {res.bits} != structural {want_bits}")
+    ticks = SERVE_PROMPT + SERVE_GEN
+    log(f"serve qwen3-0.6b (full size, {leaves} leaves): q8_block broadcast "
+        f"{res.bits:.0f} bits (structural), launches {launches} (as "
+        f"expected); greedy batch {SERVE_BATCH}, {ticks} ticks: "
+        f"{1e3 * res.seconds / ticks:.3f} ms a tick, {SERVE_BATCH * ticks / res.seconds:.1f} "
+        f"tok/s (host clock over the loop, first tick included)")
+    fed = res.tokens[:, :ticks]
+    dec = check_decode_against_forward("serve qwen3-0.6b", qwen,
+                                       res.params, fed)
+    margin, scale = top2_margin(dec)
+    agree = [margin_rule(res.tokens[b, 1:].tolist(),
+                         dec[b].argmax(-1).tolist(), margin[b].tolist(),
+                         scale[b].tolist())[0] for b in range(SERVE_BATCH)]
+    log(f"serve qwen3-0.6b: the greedy tokens equal the teacher-forced "
+        f"decode's argmax by the margin rule ({agree} of {ticks} a row)")
+    del dec, margin, scale
+
+    # -- 2. rwkv6-3b, full width, RWKV_LAYERS layers -----------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rparams = M.init_params(rwkv, generator=gen, device="cuda")
+    rtoks, rsecs = serve.greedy_decode(rwkv, rparams, SERVE_BATCH, ticks,
+                                       "cuda")
+    log(f"serve rwkv6-3b ({rwkv.n_layers} layers, full width): greedy batch "
+        f"{SERVE_BATCH}, {ticks} ticks: {1e3 * rsecs / ticks:.3f} ms a tick, "
+        f"{SERVE_BATCH * ticks / rsecs:.1f} tok/s")
+    rtoks = rtoks[:, :ticks]
+    # the WKV6 kernel, layer by layer: its output and final state against
+    # the plain wkv_step chain on the same inputs, within WKV_TOL
+    worst, kernel_scan = [0.0], R6.wkv_scan
+
+    def held_scan(r, k, v, w, u):
+        got, want = kernel_scan(r, k, v, w, u), wkv_plain_scan(r, k, v, w, u)
+        for g, p in zip(got, want):
+            err = (g - p).abs()
+            check(bool((err <= WKV_TOL * (1 + p.abs())).all()),
+                  f"WKV6 kernel forward off the wkv_step chain by "
+                  f"{err.max().item():.3e} at {tuple(r.shape)}")
+            worst[0] = max(worst[0], err.max().item())
+        return got
+
+    WK.wkv6_forward.launches = 0
+    kern = forward_with_scan(rwkv, rparams, rtoks, held_scan)
+    check(WK.wkv6_forward.launches == rwkv.n_layers,
+          f"rwkv6-3b forward launched WKV6 {WK.wkv6_forward.launches} "
+          f"times, expected {rwkv.n_layers}")
+    log(f"serve rwkv6-3b: every layer's WKV6 kernel forward equals the "
+        f"plain wkv_step chain on its inputs within {WKV_TOL} (1 + |plain|) "
+        f"(y and final state; max |diff| {worst[0]:.3e})")
+    # decode against the forward: in f32 the products at M = 4 and at
+    # M = 192 round apart, and the per-head group norm divides by
+    # sqrt(var + 1e-5) with var down to ~1e-10 at the first tokens, so
+    # the logits part by up to ~1e-3 (PERF.md, Findings); f64 (the
+    # recurrence itself stays f32, as the reference's) shows the two are
+    # one function
+    plain = forward_with_scan(rwkv, rparams, rtoks, wkv_plain_scan)
+    with torch.no_grad():
+        dec32 = decode_logits(rwkv, rparams, rtoks)
+    check(all(bool(torch.isfinite(t).all()) for t in (kern, plain, dec32)),
+          "rwkv6-3b logits not finite")
+    log(f"serve rwkv6-3b in f32: decode logits against the forward through "
+        f"the plain chain max |diff| {(plain - dec32).abs().max().item():.3e}"
+        f", through the WKV6 kernel {(kern - dec32).abs().max().item():.3e};"
+        f" |logits| <= {dec32.abs().max().item():.3f}")
+    del kern, plain, dec32
+    p64 = {k: v.double() for k, v in rparams.items()}
+    r64 = rwkv.with_(dtype="float64")
+    check_decode_against_forward(
+        "serve rwkv6-3b in f64 (the forward through the plain chain)", r64,
+        p64, rtoks, fwd=forward_with_scan(r64, p64, rtoks, wkv_plain_scan))
+    del p64
+    del rparams, rtoks
+    torch.cuda.empty_cache()
+
+    # -- 3. the engine at full size: each request as if decoded alone ------
+    pgen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, qwen.vocab_size, (2 + i % 3,),
+                             generator=pgen).tolist() for i in range(6)]
+    eng = Engine(qwen, res.params, max_batch=2, cache_len=64)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=FLEET["gen_len"]))
+    t0 = time.perf_counter()
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    eng_s = time.perf_counter() - t0
+    check(len(done) == 6, f"engine finished {len(done)} of 6 requests")
+    compared, stops = 0, 0
+    for r, p in zip(done, prompts):
+        want, margins, scales = offline_greedy(qwen, res.params, p,
+                                               FLEET["gen_len"])
+        n, stopped = margin_rule(r.output, want, margins, scales)
+        compared += n
+        stops += stopped
+    log(f"engine (qwen3-0.6b full size, 6 requests over 2 slots, "
+        f"{eng.clock} ticks in {eng_s:.3f} s): outputs equal each request "
+        f"decoded alone on {compared} of {6 * FLEET['gen_len']} tokens by "
+        f"the margin rule ({stops} stopped at a near tie)")
+    del eng, res
+    torch.cuda.empty_cache()
+
+    # -- 4. the trainer -> fleet delta stream at full size -----------------
+    like = {path: ShapeDtype(shape, torch.float32, torch.device("meta"))
+            for path, shape, _ in param_specs(qwen)}
+    nat_bits = live_publish_bits(wire_flag_codec("natural"), qwen)
+    structural = {"dense": float(sum(math.prod(v.shape) * 32
+                                     for v in like.values())),
+                  "q8": live_publish_bits(wire_flag_codec("q8"), qwen),
+                  "natural": nat_bits}
+    for wire in FLEET_WIRES:
+        torch.cuda.reset_peak_memory_stats()
+        comp = CompressionConfig(enabled=False, model_wire=wire,
+                                 publish_every=FLEET["publish_every"])
+        tcfg = TrainConfig(learning_rate=FLEET["lr"],
+                           total_steps=FLEET["steps"], warmup_steps=1,
+                           compression=comp)
+        transport = build_transport(comp, qwen, SimChannel(), w=1,
+                                    params_like=like)
+        state = init_state(0, qwen, tcfg, 1, "cuda")
+        step_fn = build_train_step(qwen, tcfg, 1, HostMesh(data=1,
+                                                           device="cuda"))
+        stream = TokenStream(qwen, FLEET["seq"], FLEET["batch"])
+        bridge = TrainerFleetBridge(
+            qwen, state.params, transport["model"],
+            n_replicas=FLEET["replicas"],
+            publish_every=FLEET["publish_every"], stale_k=FLEET["stale_k"],
+            noise=AddressedNoise(1, "cuda"), max_batch=FLEET["max_batch"],
+            cache_len=FLEET["cache_len"],
+            sync_codec=wire_flag_codec("natural"))
+        timed = {"publish": [], "apply": []}
+
+        def timer(fn, key):
+            """``fn`` timed on the host clock, synchronised, where it did
+            work (an apply pass that applied nothing is not kept)."""
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                if out != 0:
+                    timed[key].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        bridge.publisher.publish = timer(bridge.publisher.publish, "publish")
+        for rep in bridge.fleet.replicas:
+            rep.apply_pending = timer(rep.apply_pending, "apply")
+        rgen = torch.Generator().manual_seed(2)
+        for i in range(FLEET["requests"]):
+            prompt = torch.randint(0, qwen.vocab_size, (2 + i % 3,),
+                                   generator=rgen).tolist()
+            bridge.fleet.submit(Request(uid=i, prompt=prompt,
+                                        max_new_tokens=FLEET["gen_len"]))
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(FLEET["steps"]):
+            state, metrics = step_fn(state, stream.batch(i, "cuda"))
+            losses.append(metrics["loss"].item())
+            bridge.on_step(state.params, i + 1)
+        bridge.drain()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        st = bridge.stats()
+        want = structural[wire] / 8
+        n_pub = FLEET["steps"] // FLEET["publish_every"]
+        check(all(math.isfinite(v) for v in losses),
+              f"fleet {wire}: loss not finite: {losses}")
+        check(st["delta_bytes"] == [want] * n_pub,
+              f"fleet {wire}: delta bytes {st['delta_bytes']}, structural "
+              f"{want} a publish")
+        check(st["sync_bytes"] == nat_bits / 8,
+              f"fleet {wire}: sync bytes {st['sync_bytes']} != "
+              f"{nat_bits / 8}")
+        per_step = transport.per_wire_bits()
+        codec = wire_flag_codec(wire)
+        aot = sum(codec.wire_bits(codec.payload_like(v)) for v in like.values())
+        check(per_step == {"grad": structural["dense"],
+                           "model": aot / FLEET["publish_every"]},
+              f"fleet {wire}: per-step wire bits {per_step}")
+        check((st["publishes"], st["resyncs"], st["requests_done"],
+               st["tokens_served"], st["max_staleness"])
+              == (n_pub, 0, FLEET["requests"],
+                  FLEET["requests"] * FLEET["gen_len"], 0),
+              f"fleet {wire}: publishes/resyncs/requests/tokens/staleness "
+              f"{st['publishes']}, {st['resyncs']}, {st['requests_done']}, "
+              f"{st['tokens_served']}, {st['max_staleness']}")
+        # lockstep: a replica holds the publisher's h_bar bitwise; on the
+        # lossless stream that is the trainer's params
+        target = state.params if wire == "dense" else bridge.publisher.h_bar
+        want_d = tree_digests(target)
+        for rep in bridge.fleet.replicas:
+            got_d = tree_digests(rep.params)
+            off = [k for k in want_d if got_d[k] != want_d[k]]
+            check(not off, f"fleet {wire}: replica {rep.rid} differs from "
+                           f"the {'trainer' if wire == 'dense' else 'h_bar'}"
+                           f" at {off[:4]}")
+        log(f"fleet qwen3-0.6b full size, wire {wire}: {n_pub} publishes of "
+            f"{want:.0f} bytes (structural; AOT per step model "
+            f"{per_step['model'] / 8:.0f}, grad {per_step['grad'] / 8:.0f}), "
+            f"sync {st['sync_bytes']:.0f} bytes; replicas bitwise the "
+            f"{'trainer' if wire == 'dense' else 'publisher h_bar'} by "
+            f"{len(want_d)} leaf digests; losses {losses}; publish s "
+            f"{[round(t, 4) for t in timed['publish']]}; apply s "
+            f"{[round(t, 4) for t in timed['apply']]}; err_rel "
+            f"{st['err_rel']}; max staleness {st['max_staleness']}, resyncs "
+            f"{st['resyncs']}, {st['tokens_served']} tokens served; "
+            f"{run_s:.2f} s in all; peak {peak / 2**30:.2f} GiB")
+        # the timers on the publisher and replicas close over their bound
+        # methods: a cycle, which only the collector frees
+        del bridge, state, step_fn, transport
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 5. the smoke demo against the baseline's structural row -----------
+    for wire in FLEET_WIRES:
+        row = run_fleet_demo("qwen3-0.6b", n_replicas=2, model_wire=wire,
+                             publish_every=2, stale_k=4, steps=4,
+                             n_requests=4, gen_len=8, device="cuda")
+        got = (row["delta_bytes"], row["sync_bytes"],
+               row["wire_bytes_per_step"], row["publishes"], row["resyncs"],
+               row["requests_done"], row["tokens_served"],
+               row["max_staleness"])
+        want = ([SMOKE_DELTA_BYTES[wire]] * 2, SMOKE_SYNC_BYTES,
+                {"grad": SMOKE_GRAD_BYTES,
+                 "model": SMOKE_DELTA_BYTES[wire] / 2}, 2, 0, 4, 32, 0)
+        check(got == want, f"smoke run_fleet_demo {wire}: {got} != the "
+                           f"baseline's {want}")
+        log(f"smoke run_fleet_demo {wire} on the card: the baseline's "
+            f"structural row exactly; err_rel {row['err_rel']}, final loss "
+            f"{row['final_loss']:.6f}")
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 class RecordingNoise:
@@ -1893,6 +2349,8 @@ def main(argv=None):
             f"to {ref} ({len(want)} leaf digests)")
     by_path["qwen3-0.6b entry points"] = phase_entry_points(*entry_inputs)
     del entry_inputs
+    torch.cuda.empty_cache()
+    by_path["qwen3-0.6b serve"] = phase_serve(qwen, rwkv)
     torch.cuda.empty_cache()
     phase_convex(card)
     # each kernel's launches on the path of the slice that ported it: the

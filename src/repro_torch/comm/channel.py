@@ -4,6 +4,8 @@ port runs.
 
 ``Channel.uplink`` is the W-stacked encode and decode of a tree with its
 structural wire bits (DCGD-STAR's and GDCI's messages);
+``Channel.broadcast`` the downlink, one encode per leaf from the sender
+(the model wire of ``comm.transport``, ``serving.delta``);
 ``Channel.push_mean`` is an uplink then its aggregation;
 ``Channel.shift_round`` schedules one shift-rule round, and
 ``Channel.fused_round`` its reduce/apply tail for messages the backward
@@ -29,7 +31,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.comm.wire import LeafNoise, encode_decode_workers
-from repro_torch.core.compressors import f32_bits
+from repro_torch.core.compressors import ShapeDtype, f32_bits
 from repro_torch.dist.collectives import (
     AGGREGATION_MODES,
     WorkerMean,
@@ -85,6 +87,26 @@ class Channel:
             payloads, out[k] = encode_decode_workers(
                 q, LeafNoise(noise, i, part), leaf)
             bits = bits + f32_bits(q.wire_bits(payloads))
+        return out, bits
+
+    def broadcast(self, q, noise, tree: Tree):
+        """Downlink (model broadcast): the sender encodes each leaf once,
+        its draws bound to the leaf's global position (no worker), and
+        every receiver decodes the same payload.  Returns ``(decoded
+        tree, bits)``, the bits structural and counted once (a broadcast
+        sends each byte once per link, not per subscriber), summed in f32
+        leaf by leaf.  A decoded leaf is the receiver's own buffer: where
+        a codec's decode hands back its input (``Identity``) it is
+        copied, so the sender's later in-place updates never reach it."""
+        out = {}
+        bits = f32_bits()
+        for i, (k, leaf) in enumerate(tree.items()):
+            payload, meta = q.encode(LeafNoise(noise, i).worker(None), leaf)
+            bits = bits + f32_bits(q.wire_bits(payload))
+            d = q.decode(payload, meta, ShapeDtype.of(leaf))
+            same = (d.untyped_storage().data_ptr()
+                    == leaf.untyped_storage().data_ptr())
+            out[k] = d.clone() if same else d
         return out, bits
 
     def reduce(self, noise, wtree: Tree) -> Dict[str, WorkerMean]:

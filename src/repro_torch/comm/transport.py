@@ -1,0 +1,296 @@
+"""The Transport layer: every wire of a run as one registry -- the port
+of the reference's ``repro/comm/transport.py`` for the ``grad`` and
+``model`` wires.
+
+  ``Wire``       one named traffic stream: a topology, the codec whose
+        payload rides it, an optional shift rule + Channel (the
+        ``allreduce`` grad wire), and its declared per-step traffic for
+        structural accounting.
+  ``Transport``  the per-step registry of every Wire; ``per_wire_bits``
+        is the accounting table.
+  ``build_transport``  the standard registry from a
+        ``CompressionConfig``: the grad wire always, the ``model`` wire
+        (the trainer -> serving-fleet downlink, ``serving.delta``) when
+        its flag is set.  The ``moe`` and ``act`` wires and the
+        forwarded-payload topologies (``all_to_all``, ``p2p``) raise,
+        naming the ROADMAP item that ports them.
+
+Noise rule (the reference's keying rule, on the port's noise sources):
+the grad wire hands its round's noise to ``rule.round`` VERBATIM, so a
+round through the wire is bitwise ``Channel.shift_round``'s; every other
+wire draws from its own stream, ``wire_stream(noise, name)``
+(``AddressedNoise.stream``: the CRC-32 of the wire's name becomes a
+field of every address), so no two wires share draws.
+
+Accounting is ahead of time and structural: ``Compressor.payload_like``
+runs a codec's encode on meta tensors (shapes, no data, no draw), the
+same encode the live traffic runs, so the bits cannot drift from the
+wire protocol.  The measured surfaces of the reference's Wire
+(``codec_timings``, ``codec_quality``, ``obs_snapshot``), the tune
+model's ``overlap_hidden``, ``fused`` and ``extra_traffic`` come with
+obs and tune (ROADMAP queue 1, item 11); the fused and iterate rounds
+come when the step routes its round through the grad wire (item 6).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.compressors import ShapeDtype, _tensor_leaves
+
+#: wire topologies of the reference; the port runs ``allreduce`` (the
+#: grad wire) and ``broadcast`` (the model wire)
+WIRE_TOPOLOGIES = ("allreduce", "all_to_all", "p2p", "broadcast")
+
+#: per-wire codec flags the config/CLI surface accepts (``--model_wire``)
+WIRE_CODEC_FLAGS = ("none", "dense", "q8", "randk", "topk", "sign",
+                    "natural")
+
+#: where the other wires and topologies come in
+_WIRES_ITEM = "ROADMAP queue 1, item 9 (other wires and architectures)"
+
+
+def wire_stream(noise, name: str):
+    """THE per-wire noise derivation: the stream of the wire ``name``
+    (the reference folds the CRC-32 of the name into its key).  The grad
+    wire does not use it: its round noise passes verbatim."""
+    return noise.stream(name)
+
+
+def wire_flag_codec(flag: str, *, randk_q: float = 0.05):
+    """Codec for one per-wire config flag (None for ``"none"``); every
+    one is meta-free (its decoder state travels in the payload)."""
+    from repro_torch.core.compressors import (
+        Identity,
+        Int8Stochastic,
+        NaturalCompression,
+        RandK,
+        ScaledSign,
+        TopK,
+    )
+
+    table = {
+        "none": lambda: None,
+        "dense": Identity,
+        "q8": Int8Stochastic,
+        "randk": lambda: RandK(q=randk_q),
+        "topk": lambda: TopK(q=randk_q),
+        "sign": ScaledSign,
+        "natural": NaturalCompression,
+    }
+    if flag not in table:
+        raise ValueError(
+            f"unknown wire codec {flag!r}; have {WIRE_CODEC_FLAGS}")
+    return table[flag]()
+
+
+def aggregation_wire_codec(comp):
+    """The codec whose payload defines a grad-wire round's bytes on the
+    wire, from anything with ``enabled`` / ``comm_mode`` / ``randk_q`` /
+    ``q8_block_rows`` / ``compressor`` attributes: the aggregation
+    formats are charged their aggregation codec, the error-feedback
+    modes their configured contractive message."""
+    from repro_torch.comm.channel import (
+        FUSED_VJP_MODES,
+        OVERLAP_MODES,
+        _check_ported,
+    )
+    from repro_torch.core.compressors import (
+        Identity,
+        Int8Stochastic,
+        RandK,
+        make_compressor,
+    )
+
+    if not getattr(comp, "enabled", True):
+        return Identity()
+    mode = comp.comm_mode
+    if mode in ("dense", "sim"):   # sim: the exact-mean parameter server
+        return Identity()
+    if mode == "randk_shared":
+        return RandK(q=comp.randk_q, shared_pattern=True)
+    if mode == "q8_ring":
+        return Int8Stochastic()
+    if mode in ("q8_ring_fused",) + OVERLAP_MODES + FUSED_VJP_MODES:
+        return make_compressor("q8_block", block_rows=comp.q8_block_rows)
+    if mode in ("ef21", "efbv"):
+        return make_compressor(comp.compressor,
+                               **dict(comp.compressor_kwargs))
+    _check_ported(mode)   # "auto" names its item, an unknown mode the modes
+    raise ValueError(f"no wire codec for comm mode {mode!r}")
+
+
+def _payload_like(codec, like: ShapeDtype, topology: str):
+    """The payload of ONE send of ``like`` through ``codec``, as meta
+    tensors: a worker-stacked ``(W, ...)`` leaf on an allreduce wire
+    (one payload a worker), the whole leaf on a broadcast wire."""
+    if topology == "allreduce":
+        w, *inner = like.shape
+        one = codec.payload_like(ShapeDtype(tuple(inner), like.dtype,
+                                            torch.device("meta")))
+        return [one] * w
+    return codec.payload_like(like)
+
+
+def _aot_payload_bits(codec, like, topology: str) -> float:
+    """Structural bits of one send (the codec's ``wire_bits``)."""
+    return float(codec.wire_bits(_payload_like(codec, like, topology)))
+
+
+def _aot_payload_nbytes(codec, like, topology: str) -> float:
+    """Buffer bytes of one send's payload: container widths (a 1-bit
+    sign in an int8 container counts 1 byte), beside the structural
+    bits."""
+    total = 0
+    for leaf in _tensor_leaves(_payload_like(codec, like, topology)):
+        t = getattr(leaf, "data", leaf)
+        total += math.prod(t.shape) * t.element_size()
+    return float(total)
+
+
+@dataclass(eq=False)
+class Wire:
+    """One named traffic stream of the Transport.
+
+    ``traffic`` declares the per-STEP payload tensors as ``((ShapeDtype,
+    count), ...)``; counts fold repeated sends (workers, publishes every
+    k steps as 1/k) so the accounting stays static."""
+
+    name: str
+    topology: str
+    codec: Any
+    channel: Any = None
+    rule: Any = None                 # allreduce: the phased ShiftRule
+    msg_codec: Any = None            # allreduce: the rule's message codec
+    traffic: Tuple = ()
+
+    def __post_init__(self):
+        if self.topology not in WIRE_TOPOLOGIES:
+            raise ValueError(f"unknown wire topology {self.topology!r}; "
+                             f"have {WIRE_TOPOLOGIES}")
+        if self.topology in ("all_to_all", "p2p"):
+            raise NotImplementedError(
+                f"{self.topology} wires (the moe and act wires) are not "
+                f"ported yet: {_WIRES_ITEM}")
+
+    # -- the allreduce grad wire: the shift-rule engine, noise VERBATIM --
+
+    def shift_round(self, noise, wgrads, h, h_bar):
+        """One gradient round: ``rule.round`` with the round's noise as
+        given, bitwise ``Channel.shift_round``.  Returns ``(g_bar, h_new,
+        h_bar_new, bits)``."""
+        return self.rule.round(self.msg_codec, noise, wgrads, h, h_bar,
+                               self.channel)
+
+    # -- the broadcast model wire ----------------------------------------
+
+    def broadcast(self, noise, tree):
+        """One downlink fan-out of a whole tree through the wire's codec:
+        ``(decoded, bits)``, the bits counted once."""
+        return self.channel.broadcast(self.codec, noise, tree)
+
+    # -- accounting --------------------------------------------------------
+
+    def _per_step(self, per_send) -> float:
+        total, cache = 0.0, {}
+        for like, count in self.traffic:
+            sig = (tuple(like.shape), like.dtype)
+            if sig not in cache:
+                cache[sig] = per_send(self.codec, like, self.topology)
+            total += count * cache[sig]
+        return total
+
+    def wire_bits(self) -> float:
+        """Per-step structural wire bits of the declared traffic."""
+        return self._per_step(_aot_payload_bits)
+
+    def payload_nbytes(self) -> float:
+        """Per-step payload buffer bytes of the declared traffic."""
+        return self._per_step(_aot_payload_nbytes)
+
+
+class Transport:
+    """Per-step registry of every Wire.  Dict-like: ``transport["grad"]``,
+    ``"model" in transport``, ``transport.get("model")``."""
+
+    def __init__(self, wires=()):
+        self._wires: Dict[str, Wire] = {}
+        for wire in wires:
+            self.register(wire)
+
+    def register(self, wire: Wire) -> Wire:
+        if wire.name in self._wires:
+            raise ValueError(f"wire {wire.name!r} already registered "
+                             f"(have {sorted(self._wires)})")
+        self._wires[wire.name] = wire
+        return wire
+
+    def __contains__(self, name) -> bool:
+        return name in self._wires
+
+    def __getitem__(self, name) -> Wire:
+        if name not in self._wires:
+            raise KeyError(f"no wire {name!r} registered; have "
+                           f"{sorted(self._wires)}")
+        return self._wires[name]
+
+    def get(self, name, default=None) -> Optional[Wire]:
+        return self._wires.get(name, default)
+
+    def __iter__(self):
+        return iter(self._wires.values())
+
+    def __len__(self) -> int:
+        return len(self._wires)
+
+    def names(self):
+        return tuple(self._wires)
+
+    def per_wire_bits(self) -> Dict[str, float]:
+        """{wire name: per-step wire bits}."""
+        return {name: wire.wire_bits() for name, wire in self._wires.items()}
+
+
+def build_transport(comp, cfg, channel, *, rule=None, msg_codec=None,
+                    w: int = 1, params_like=None) -> Transport:
+    """The standard per-step Transport of one run.
+
+    The ``grad`` wire always: its accounting codec is
+    ``aggregation_wire_codec(comp)``, its engine objects ``rule`` /
+    ``msg_codec`` (None for an accounting-only transport).  The
+    ``model`` wire (``broadcast``) when ``comp.model_wire`` is set: one
+    params-shaped payload per publish, its traffic counted ``1 /
+    publish_every`` a step.  ``params_like`` (``{path: anything with
+    .shape and .dtype}``) declares the grad wire's traffic as
+    worker-stacked leaves and the model wire's as the leaves themselves;
+    omit it for a transport that never reads ``per_wire_bits``.
+    """
+    for flag in ("moe_wire", "act_wire"):
+        if getattr(comp, flag, "none") != "none":
+            raise NotImplementedError(
+                f"{flag} {getattr(comp, flag)!r}: the {flag[:-5]} wire is "
+                f"not ported yet: {_WIRES_ITEM}")
+    meta = torch.device("meta")
+    leaves = [] if params_like is None else list(params_like.values())
+    wires = [Wire(
+        name="grad", topology="allreduce",
+        codec=aggregation_wire_codec(comp), channel=channel, rule=rule,
+        msg_codec=msg_codec,
+        traffic=tuple((ShapeDtype((w, *leaf.shape), leaf.dtype, meta), 1)
+                      for leaf in leaves),
+    )]
+    model_flag = getattr(comp, "model_wire", "none")
+    if model_flag != "none":
+        every = max(1, int(getattr(comp, "publish_every", 1)))
+        wires.append(Wire(
+            name="model", topology="broadcast",
+            codec=wire_flag_codec(model_flag, randk_q=comp.randk_q),
+            channel=channel,
+            traffic=tuple((ShapeDtype(tuple(leaf.shape), leaf.dtype, meta),
+                           1.0 / every) for leaf in leaves),
+        ))
+    return Transport(wires)

@@ -35,9 +35,10 @@ along its own key chain, which is how the port's round is held bit for
 bit against the reference's):
 
 * ``AddressedNoise``, the training step's (``launch.train.init_state``):
-  every draw is a pure function of its address -- the seed, the round,
-  the kind of draw and its (leaf, worker or hop, part) -- so a round
-  draws the same bits in ANY order of its calls.  That is what lets the
+  every draw is a pure function of its address -- the seed, the wire
+  (``stream``: none on the gradient wire), the round, the kind of draw
+  and its (leaf, worker or hop, part) -- so a round draws the same bits
+  in ANY order of its calls.  That is what lets the
   overlap runtime (``comm.overlap``: bucket by bucket, message then
   ring) and the fused backward encode (``comm.fused_vjp``: worker by
   worker, in reverse layer order, inside autograd) re-schedule a round
@@ -124,26 +125,44 @@ _UNIFORM, _PERMUTATION, _AUX, _RING = range(4)
 
 class AddressedNoise:
     """The port's ``jax.random.fold_in``: every draw of a round is
-    addressed by name, ``(seed, round, kind, leaf, worker or hop, part)``,
-    and made by reseeding one ``torch.Generator`` on ``device`` from a
-    splitmix64 chain over that address.  The same address gives the same
-    bits in any order of the calls and on any stream.  It does not
-    reproduce the reference's threefry draws (the port never does: the
-    parity tests replay those), only their independence from the order.
+    addressed by name, ``(seed, [wire,] round, kind, leaf, worker or hop,
+    part)``, and made by reseeding one ``torch.Generator`` on ``device``
+    from a splitmix64 chain over that address.  The same address gives
+    the same bits in any order of the calls and on any stream.  It does
+    not reproduce the reference's threefry draws (the port never does:
+    the parity tests replay those), only their independence from the
+    order.
+
+    ``wire`` is the stream of a named wire other than the gradient wire
+    (``stream``, the port of ``comm.transport.wire_stream``): the CRC-32
+    of its name, masked to 31 bits as the reference folds it in; None on
+    the gradient wire, whose addresses then omit the field.
 
     On a CUDA device the generator is Philox, keyed by all 64 bits of
     the mixed seed; the CPU's Mersenne Twister keeps the low 32 of them,
     so two of a round's ~100 addresses collide there with probability
-    ~1e-6.  ``next_round()`` moves to the next round's addresses."""
+    ~1e-6.  ``next_round()`` moves to the next round's addresses,
+    ``at_round(r)`` gives a source at round ``r``."""
 
-    def __init__(self, seed: int, device):
-        self.seed, self.round = int(seed), 0
+    def __init__(self, seed: int, device, wire: Optional[int] = None,
+                 round: int = 0):
+        self.seed, self.wire, self.round = int(seed), wire, int(round)
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
 
+    def stream(self, name: str) -> "AddressedNoise":
+        """The source of the wire called ``name``, at round 0."""
+        return AddressedNoise(self.seed, self.device,
+                              zlib.crc32(name.encode("utf-8")) & 0x7FFFFFFF)
+
+    def at_round(self, r: int) -> "AddressedNoise":
+        """This source's addresses at round ``r``."""
+        return AddressedNoise(self.seed, self.device, self.wire, r)
+
     def _at(self, kind: int, leaf, sub, part) -> torch.Generator:
+        head = (self.seed,) if self.wire is None else (self.seed, self.wire)
         h = 0
-        for v in (self.seed, self.round, kind, leaf, sub, part):
+        for v in head + (self.round, kind, leaf, sub, part):
             h = _splitmix64(h ^ _field(v))
         self.generator.manual_seed(h)
         return self.generator

@@ -32,8 +32,7 @@ function:
         variance constants of the classes U(omega) and B(delta).
 
 Codecs still to be ported (BernoulliP, NaturalDithering, TernGrad,
-ScaledSign, Induced) raise ``NotImplementedError`` from
-``make_compressor``.
+Induced) raise ``NotImplementedError`` from ``make_compressor``.
 """
 
 from __future__ import annotations
@@ -462,6 +461,35 @@ class RandK(Unbiased):
         return d / _k_of(self.q, d) - 1.0
 
 
+@dataclass(frozen=True)
+class ScaledSign(Contractive):
+    """(||x||_1 / d) * sign(x) (Karimireddy et al.), in B(||x||_1^2 /
+    (d ||x||_2^2)); worst-case delta = 1/d.  The model wire's ``sign``
+    flag.
+
+    Payload: one sign bit per coordinate (int8 container) and an f32
+    scale, the mean of |x| in f32.  An exact zero keeps sign 0, and a NaN
+    too (XLA's int8 convert maps the reference's NaN sign to 0).
+    Deterministic.  Plain PyTorch, as the reference's is plain jnp.
+    """
+
+    def encode(self, rand, x):
+        xf = x.to(torch.float32)
+        sign = torch.sign(xf).nan_to_num_(nan=0.0).to(torch.int8)
+        return {"sign": PackedBits(sign, 1), "scale": xf.abs().mean()}, {}
+
+    def decode(self, payload, meta, like):
+        out = payload["sign"].data.to(torch.float32) * payload["scale"]
+        return out.reshape(like.shape).to(like.dtype)
+
+    def delta(self, d):
+        return 1.0 / d
+
+    @property
+    def stochastic(self):
+        return False
+
+
 def _fused_q8(**kw) -> Compressor:
     # the CUDA-fused blockwise-int8 codec lives with its kernel
     from repro_torch.kernels.q8ring.ops import FusedQ8
@@ -478,9 +506,10 @@ _PORTED = {
     "q8_block": _fused_q8,
     "natural": NaturalCompression,
     "topk": TopK,
+    "sign": ScaledSign,
 }
 _NOT_PORTED = ("bernoulli", "natural_dithering", "terngrad",
-               "sign", "induced", "induced_topk_randk",
+               "induced", "induced_topk_randk",
                "induced_topk_natural")
 
 

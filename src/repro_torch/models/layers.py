@@ -7,6 +7,12 @@ k/v (B, S, KV, Dh); projection weights 2-D (d, H*dh).  Parameters are
 passed as dicts keyed by the reference's names relative to the layer
 (``"wq"``, ``"q_norm/scale"``, ...).  Attention is written out as
 matmul + softmax, as the reference writes it.
+
+Decode (``attention_decode``) writes one token a call into a ring cache
+of C slots per batch row, ``{"k", "v": (B, C, KV, Dh), "kpos": (B, C)
+int32}``, IN PLACE (the reference returns a new cache): the token at
+absolute position ``pos`` goes to slot ``pos % C``, and ``kpos`` holds
+each slot's position, -1 where the slot is empty or was invalidated.
 """
 
 from __future__ import annotations
@@ -59,12 +65,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def chunked_attention(q, k, v, *, causal: bool, q_offset: int,
-                      k_positions: torch.Tensor, window: int = 0,
-                      q_chunk: int = 512):
+                      k_positions: torch.Tensor, k_valid=None,
+                      window: int = 0, q_chunk: int = 512):
     """Grouped-query attention, softmax in f32.  Up to one key chunk
     (``q_chunk`` keys) it is one masked softmax; longer key sequences run
     the flash-attention recurrence over key chunks with running
-    (max, sum, out) accumulators, as the reference does."""
+    (max, sum, out) accumulators, as the reference does.  ``k_valid``:
+    None, or a bool (B, Sk) or (Sk,) mask, False where a key is masked
+    out."""
     b, sq, h, dh = q.shape
     dv = v.shape[-1]
     kv = k.shape[2]
@@ -74,8 +82,10 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int,
     qg = q.reshape(b, sq, kv, g, dh)
     kpos = k_positions.to(torch.int64)
     qpos = q_offset + torch.arange(sq, device=q.device)
+    if k_valid is not None and k_valid.dim() == 1:
+        k_valid = k_valid[None]
 
-    def block(kc_, kpos_c):
+    def block(kc_, kpos_c, kvalid_c):
         """One key block: masked scores (B, KV, G, Sq, kc) in f32."""
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc_).to(torch.float32) * scale
         mask = torch.ones((sq, kc_.shape[1]), dtype=torch.bool,
@@ -84,11 +94,13 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int,
             mask &= kpos_c[None, :] <= qpos[:, None]
         if window and window > 0:
             mask &= kpos_c[None, :] > (qpos[:, None] - window)
+        if kvalid_c is not None:   # (B or 1, kc): per-row validity
+            mask = mask & kvalid_c[:, None, None, None, :]
         return torch.where(mask, s, torch.full_like(s, -1e30))
 
     kc = min(q_chunk, sk)
     if sq == 1 or sk <= kc:
-        p = torch.softmax(block(k, kpos), dim=-1)
+        p = torch.softmax(block(k, kpos, k_valid), dim=-1)
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
         return o.reshape(b, sq, h, dv)
 
@@ -98,6 +110,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kpos = F.pad(kpos, (0, pad), value=2**30)
+        if k_valid is not None:
+            k_valid = F.pad(k_valid, (0, pad), value=False)
 
     m = torch.full((b, kv, g, sq), -math.inf, dtype=torch.float32,
                    device=q.device)
@@ -105,7 +119,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int,
     o = torch.zeros((b, kv, g, sq, dv), dtype=torch.float32, device=q.device)
     for c in range(n_chunks):
         sl = slice(c * kc, (c + 1) * kc)
-        s = block(k[:, sl], kpos[sl])
+        s = block(k[:, sl], kpos[sl],
+                  None if k_valid is None else k_valid[:, sl])
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -154,6 +169,42 @@ def attention_apply(p, x, cfg: ModelConfig):
                             k_positions=pos, window=cfg.sliding_window,
                             q_chunk=cfg.attn_q_chunk)
     return _out_proj(out, p["wo"])
+
+
+def attention_decode(p, x, cfg: ModelConfig, cache, pos: int):
+    """One-token decode at absolute position ``pos`` (a host int: the
+    engine's clock lives on the host, so a tick never waits on the
+    device for it).  Writes the token's k/v and position into slot ``pos
+    % C`` of ``cache`` in place and attends over the ring: ``kpos`` (B,
+    C) marks each row's valid slots, and the causal and window masks
+    read the shared clock's positions, ``max_B kpos`` (2**30 where no
+    row holds the slot).  Returns ``y`` (B, 1, D)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    slot = pos % cache["k"].shape[1]
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    cache["kpos"][:, slot] = pos
+    kpos = cache["kpos"]
+    shared_pos = kpos.amax(dim=0)
+    out = chunked_attention(
+        q, cache["k"], cache["v"], causal=True, q_offset=pos,
+        k_positions=torch.where(shared_pos >= 0, shared_pos, 2**30),
+        k_valid=kpos >= 0, window=cfg.sliding_window, q_chunk=1)
+    return _out_proj(out, p["wo"])
+
+
+def make_attention_cache(cfg: ModelConfig, b: int, cache_len: int, dtype,
+                         device) -> dict:
+    """An empty ring cache: zero k/v, every slot's position -1."""
+    shape = (b, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "kpos": torch.full((b, cache_len), -1, dtype=torch.int32,
+                           device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,9 @@
 of numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)`` --
 into the port's flat ``{path: tensor}`` dict, in the reference's leaf
 order.  ``state_from_jax`` does the same for the other ``TrainState``
-parts (AdamW moments, shifts) so both sides can start from one state.
+parts (AdamW moments, shifts) so both sides can start from one state,
+and ``decode_state_from_jax`` for a decode state (caches, RWKV-6
+states).
 """
 
 from __future__ import annotations
@@ -38,6 +40,13 @@ def params_from_jax(tree: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
     """The reference's params pytree (numpy leaves) as the port's params."""
     return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
             for k, v in flatten_tree(tree).items()}
+
+
+def decode_state_from_jax(tree: Mapping, device="cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """The reference's decode state (``make_decode_state``'s nested dict,
+    numpy leaves) as the port's flat ``{"kv/k": ..., "kv/kpos": ...}``."""
+    return params_from_jax(tree, device)
 
 
 def state_from_jax(params: Mapping, m: Mapping, v: Mapping, opt_step: int,

@@ -187,7 +187,8 @@ def test_make_compressor_registry():
     assert isinstance(TC.make_compressor("natural"), TC.NaturalCompression)
     assert TC.make_compressor("topk", q=0.2) == TC.TopK(q=0.2)
     assert TC.make_compressor("randk", q=0.2) == TC.RandK(q=0.2)
-    for name in ("bernoulli", "terngrad", "sign"):
+    assert TC.make_compressor("sign") == TC.ScaledSign()
+    for name in ("bernoulli", "terngrad", "induced"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.make_compressor(name)
     with pytest.raises(ValueError):
