@@ -80,6 +80,22 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    (6, or 9's EF-BV run).  Their breakdowns also time the round whole
    (the reductions on the side stream) and, for the fused mode, the
    gradients with the encode inside.
+9c. The production layout and the rest of the step's communication,
+   each 3 full-size qwen3-0.6b steps with the checks of 5:
+   ``q8_ring_fused`` over ``HostMesh(pod=2, data=2, model=2)`` -- each
+   ``model`` shard of a leaf its own ring of 2 positions, the pod stage
+   a q8 encode and decode of each pod's sum -- its launches derived
+   from the channel's specs before the run (``ring_counts``), then one
+   more round run with the kernels and again with their plain versions
+   in their place, bitwise equal (``phase_plain_round``: the kernels at
+   every per-shard and pod-stage shape); ``HostMesh(pod=1, data=4)``
+   bitwise the ``data=4`` ring by digests; ``randk_shared`` (q = 0.05)
+   with DIANA + ``natural`` and the step's four diagnostics, its digests
+   equal to the same run without them; the five codecs ported last, one
+   uplink each over the 13 full-size leaves, bits the structural count
+   (``BernoulliP``'s its fired messages, beside its expectation)
+   (``phase_codecs``); and DIANA + ``natural_dithering`` (the paper's
+   Fig. 1 ND) dense.
 10. The entry points of the two kernels, ``shifted_natural(rand, g, h)``
    and ``block_topk(g, q=0.1)``, over all 13 full-size qwen3-0.6b
    leaves, with g worker 0's gradient of a fourth step of the natural
@@ -256,6 +272,12 @@ class HostNoise:
 
     def ring_uniform(self, *args):
         return self.source.ring_uniform(*args).to(self.device)
+
+    def pod_uniform(self, *args):
+        return self.source.pod_uniform(*args).to(self.device)
+
+    def shared_permutation(self, *args):
+        return self.source.shared_permutation(*args).to(self.device)
 
     def next_round(self):
         self.source.next_round()
@@ -1129,7 +1151,7 @@ def ring_mode(comm_mode):
     and fused-VJP modes do, in the ``q8_ring_fused`` format)."""
     from repro_torch.comm.channel import aggregation_mode_of
 
-    return aggregation_mode_of(comm_mode) != "dense"
+    return aggregation_mode_of(comm_mode) in ("q8_ring", "q8_ring_fused")
 
 
 def lattice(msg, block_rows=64):
@@ -1310,7 +1332,8 @@ def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
                     reverse=False):
     """The f32 bit counter the step must report, from leaf shapes alone:
     per leaf and worker, q8 the int8 lanes block and one f32 scale per
-    tile; natural 9 bits an element (8-bit exponent, 1-bit sign); top-k
+    tile; natural 9 bits an element (8-bit exponent, 1-bit sign); natural
+    dithering (s = 8) 5 bits an element and an f32 norm; top-k
     and randk k = round(q d) values of 32 bits and indices of
     ceil(log2 d) bits.  ``refreshes``: Rand-DIANA's refreshing workers of
     each step, each charged one dense f32 message of every param.
@@ -1327,6 +1350,8 @@ def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
         dense += 32 * d
         if codec == "natural":
             leaf = W * 9 * d
+        elif codec == "natural_dithering":   # 4-bit code, 1-bit sign, norm
+            leaf = W * (5 * d + 32)
         elif codec in ("topk", "randk"):
             k = max(1, round((TOPK_Q if codec == "topk" else RANDK_Q) * d))
             leaf = W * k * (32 + math.ceil(math.log2(max(d, 2))))
@@ -1357,6 +1382,12 @@ class RefreshCount:
 
     def ring_uniform(self, *args):
         return self.source.ring_uniform(*args)
+
+    def pod_uniform(self, *args):
+        return self.source.pod_uniform(*args)
+
+    def shared_permutation(self, *args):
+        return self.source.shared_permutation(*args)
 
     def aux_uniform(self, shape):
         self.aux.append(self.source.aux_uniform(shape))
@@ -1414,17 +1445,44 @@ def reset_launches():
     return wrappers
 
 
+def ring_counts(cfg, mesh):
+    """Per step, from the channel's specs (``build_channel``): the rings
+    the aggregation runs (one per pod and per ``model`` shard of a leaf;
+    a leaf replicated over ``model`` is reduced once) and the pod stage's
+    encodes (one per pod and shard, each decoded once)."""
+    from repro_torch.dist.sharding import worker_stacked_pspecs
+    from repro_torch.launch.train import params_like
+
+    rings = stage = 0
+    for spec in worker_stacked_pspecs(mesh, params_like(cfg), W).values():
+        sharded = mesh.model > 1 and any(a is not None for a in spec[1:])
+        shards = mesh.model if sharded else 1
+        rings += mesh.pods * shards
+        stage += mesh.pods * shards if mesh.pods > 1 else 0
+    return rings, stage
+
+
+def mesh_name(mesh_kw):
+    return "" if not mesh_kw else " " + " ".join(
+        f"{k}={v}" for k, v in mesh_kw.items())
+
+
 def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
-                    rule="diana", digest=False, breakdown=True):
+                    rule="diana", digest=False, breakdown=True,
+                    mesh_kw=None, diag=False, plain_round=False):
     """3 steps of ``cfg`` in ``comm_mode`` with ``codec`` and ``rule``:
-    ``dense`` or ``ef21``, or a ring mode (``q8_ring_fused``, the overlap
-    modes ``q8_ring_overlap``/``efbv_overlap``, ``q8_ring_fused_vjp``)
-    over a ``HostMesh(data=RING)`` on the card.  Returns the kernels'
-    launch counts of those steps; with ``digest``, per-leaf digests of
-    the params and shifts after them (else None); with ``keep``, worker
-    0's gradient of a fourth step and its shift before it (the
-    entry-point phase's inputs), else None.  ``breakdown``: time a
-    fourth step phase by phase."""
+    ``dense``, ``ef21`` or ``randk_shared``, or a ring mode
+    (``q8_ring_fused``, the overlap modes ``q8_ring_overlap``/
+    ``efbv_overlap``, ``q8_ring_fused_vjp``) over a
+    ``HostMesh(data=RING)`` on the card, or over ``HostMesh(**mesh_kw)``
+    (its pod stage and ``model`` shards).  Returns the kernels' launch
+    counts of those steps; with ``digest``, per-leaf digests of the
+    params and shifts after them (else None); with ``keep``, worker 0's
+    gradient of a fourth step and its shift before it (the entry-point
+    phase's inputs), else None.  ``breakdown``: time a fourth step phase
+    by phase.  ``diag``: the step's diagnostics on, logged a step.
+    ``plain_round``: one more round run with the kernels and again with
+    their plain versions, bitwise equal (``phase_plain_round``)."""
     from repro_torch.comm.channel import FUSED_VJP_MODES, OVERLAP_MODES
     from repro_torch.comm.overlap import plan_buckets
     from repro_torch.core.compressors import ShapeDtype
@@ -1432,50 +1490,65 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     from repro_torch.kernels.q8ring import kernel as K
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
+    from repro_torch.models.model import param_specs
 
     ring = ring_mode(comm_mode)
     async_mode = comm_mode in OVERLAP_MODES + FUSED_VJP_MODES
-    n = RING if ring else 1
     tcfg = _slice_configs(cfg, comm_mode, codec, rule)
-    mesh = HostMesh(data=n, device="cuda")
+    mesh = HostMesh(**(mesh_kw or {"data": RING if ring else 1}),
+                    device="cuda")
+    n = mesh.data
+    # leaves x workers x steps for the q8 message encode and decode (in the
+    # fused mode inside the backward pass); per ring (a leaf's, or one per
+    # pod and model shard of it) and step n chunk quantizes at each of its
+    # n positions, n - 1 accumulating dequants at each, and one all-gather
+    # decode per owner, in any bucket plan; the pod stage one q8 encode
+    # and one decode per pod and shard; an RWKV-6 layer runs one WKV6
+    # forward and one backward per worker and step (no recompute).  The
+    # natural, dithering and top-k codecs are plain PyTorch, as the
+    # reference's are: no kernel.  Counted before the run, from the code's
+    # specs and layouts
+    leaves = len(param_specs(cfg))
+    rings, stage = ring_counts(cfg, mesh) if ring else (0, 0)
+    msgs = leaves * W * STEPS if codec == "q8_block" else 0
+    wkv = cfg.n_layers * W * STEPS if cfg.arch_type == "ssm" else 0
+    expect = {"q8_quantize_2d": msgs + stage * STEPS,
+              "q8_quantize_chunk_3d": rings * n * n * STEPS,
+              "q8_dequant_add_2d": msgs + (rings * n * n + stage) * STEPS,
+              "wkv6_forward": wkv, "wkv6_backward": wkv,
+              "shifted_natural_2d": 0, "block_topk_2d": 0}
+    expect_acc = rings * n * (n - 1) * STEPS
+    what = f"main path {cfg.name} {comm_mode} {codec}" + (
+        "" if rule == "diana" else f" {rule}") + mesh_name(mesh_kw) + (
+        " diag" if diag else "")
+    if mesh_kw:
+        log(f"{what}: expected launches {expect} (accumulating dequant "
+            f"{expect_acc}): {rings} rings of {n} positions and {stage} pod "
+            f"stage encodes a step")
+
     torch.cuda.reset_peak_memory_stats()
     state = init_state(0, cfg, tcfg, W)            # on the CUDA device
     counter = RefreshCount(state.noise)
     state = state._replace(noise=counter)
-    step = build_train_step(cfg, tcfg, W, mesh)
+    step = build_train_step(cfg, tcfg, W, mesh, diag=diag)
     stream = TokenStream(cfg, SEQ, BATCH)
     batches = [stream.batch(i, "cuda") for i in range(STEPS + 1)]
     torch.cuda.synchronize()
 
     wrappers = reset_launches()
-    step_s, losses = [], []
+    step_s, losses, diags = [], [], []
     for i in range(STEPS):
         t0 = time.perf_counter()
         state, metrics = step(state, batches[i])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
+        if diag:
+            diags.append({k: metrics[k].item() for k in DIAG})
     launches = {name: fn.launches for name, fn in wrappers.items()}
     acc_launches = K.q8_dequant_add_2d.acc_launches
     peak = torch.cuda.max_memory_allocated()
 
-    # leaves x workers x steps for the q8 message encode and decode (in the
-    # fused mode inside the backward pass); per leaf and step the ring adds
-    # n chunk quantizes at each of its n positions, n - 1 accumulating
-    # dequants at each, and one all-gather decode per owner, in any bucket
-    # plan; an RWKV-6 layer runs one WKV6 forward and one backward per
-    # worker and step (no recompute).  The natural and top-k codecs are
-    # plain PyTorch, as the reference's are: no kernel
-    leaves = len(state.params)
-    msgs = leaves * W * STEPS if codec == "q8_block" else 0
-    wkv = cfg.n_layers * W * STEPS if cfg.arch_type == "ssm" else 0
-    expect = {"q8_quantize_2d": msgs,
-              "q8_quantize_chunk_3d": leaves * n * n * STEPS if ring else 0,
-              "q8_dequant_add_2d": msgs + (leaves * n * n * STEPS if ring
-                                           else 0),
-              "wkv6_forward": wkv, "wkv6_backward": wkv,
-              "shifted_natural_2d": 0, "block_topk_2d": 0}
-    expect_acc = leaves * n * (n - 1) * STEPS if ring else 0
     check(all(math.isfinite(v) for v in losses), f"loss not finite: {losses}")
     check(all(torch.isfinite(p).all().item() for p in state.params.values()),
           "params not finite")
@@ -1486,13 +1559,14 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     want = structural_bits(cfg, STEPS, codec, refreshes, reverse=async_mode)
     check(metrics["bits"].item() == want,
           f"bits {metrics['bits'].item()} != structural {want}")
-    what = f"main path {cfg.name} {comm_mode} {codec}" + (
-        "" if rule == "diana" else f" {rule}")
     check(launches == expect, f"{what}: launches {launches}, expected "
                               f"{expect}")
     check(acc_launches == expect_acc,
           f"{what}: accumulating q8_dequant_add_2d launched "
           f"{acc_launches} times, expected {expect_acc}")
+    for d in diags:
+        check(all(math.isfinite(v) and v >= 0 for v in d.values()),
+              f"{what}: diagnostics {d}")
     plan = ""
     if async_mode:
         like = {k: ShapeDtype((W, *v.shape), v.dtype, v.device)
@@ -1503,7 +1577,7 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
                 f" ({'one per leaf' if per_leaf else f'{budget} B budget'})")
     log(f"{what}: {cfg.n_layers} layers, "
         f"{sum(p.numel() for p in state.params.values()):,} params, "
-        f"{leaves} leaves, w={W}, ring positions {n}, batch {BATCH}, seq "
+        f"{leaves} leaves, w={W}, mesh {mesh.shape}, batch {BATCH}, seq "
         f"{SEQ}{plan}")
     log(f"{what}: losses {losses}; bits {metrics['bits'].item():.0f} "
         f"(structural" + (", summed in bucket order" if async_mode else "")
@@ -1511,6 +1585,9 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
            f"; workers refreshed per step {refreshes}")
         + f"); launches {launches}, of which accumulating dequant "
         f"{acc_launches} (as expected)")
+    for i, d in enumerate(diags):
+        log(f"{what}: step {i} diagnostics " + ", ".join(
+            f"{k} {v:.6e}" for k, v in d.items()))
     log(f"{what}: step seconds {[round(t, 4) for t in step_s]}; peak "
         f"memory allocated {peak / 2**30:.2f} GiB")
     digests = None
@@ -1522,7 +1599,91 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     h0 = {k: h[0].clone() for k, h in state.h.items()} if keep else None
     g0 = (phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep)
           if breakdown else None)
+    if plain_round:
+        phase_plain_round(cfg, tcfg, state, batches[STEPS], mesh, what)
     return launches, digests, (g0, h0) if keep else None
+
+
+DIAG = ("ef_err_norm", "grad_sq", "shift_residual_sq", "h_bar_drift")
+
+
+def plain_q8():
+    """The q8 kernels' plain versions behind the wrappers' signatures, and
+    where the round calls them (the codec's module and the ring's)."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels.q8ring import ops as O
+    from repro_torch.kernels.q8ring.ref import (q8_dequant_add_ref,
+                                                q8_quantize_chunk_ref,
+                                                q8_quantize_ref)
+
+    def quantize(x, u, *, block_rows):
+        return q8_quantize_ref(x, u, block=block_rows)
+
+    def chunk(chunks, u, chunk_id, *, block_rows):
+        return q8_quantize_chunk_ref(chunks, u, int(chunk_id.item()),
+                                     block=block_rows)
+
+    def dequant(q, s, acc, *, block_rows):
+        return q8_dequant_add_ref(q, s, acc, block=block_rows)
+
+    return [(O, "q8_quantize_2d", quantize), (O, "q8_dequant_add_2d", dequant),
+            (C, "q8_quantize_chunk_3d", chunk), (C, "q8_dequant_add_2d",
+                                                  dequant)]
+
+
+def phase_plain_round(cfg, tcfg, state, batch, mesh, what):
+    """One more round of the path (gradients of ``batch``, the round's
+    noise at the next round) run twice from the same shifts: with the
+    kernels, and with their plain versions in their place (``plain_q8``)
+    -- the chunk quantize and the dequant at every per-shard ring chunk,
+    the quantize and dequant at every pod-stage shard.  ``g_bar``, ``h``
+    and ``h_bar`` bitwise equal.  The optimizer state is dropped first to
+    make room."""
+    from repro_torch.dist.worker_grads import per_worker_grads, split_batch
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.launch.train import build_channel, worker_loss
+
+    cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
+    comp = tcfg.compression
+    q, rule = comp.make()
+    channel = build_channel(comp, cfg, mesh, W)
+    grads = per_worker_grads(worker_loss(cfg), state.params,
+                             split_batch(batch, W))[0]
+    h, h_bar, noise = state.h, state.h_bar, state.noise
+    state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = []
+    for plain in (False, True):
+        swapped = plain_q8() if plain else []
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
+        for mod, name, fn in swapped:
+            setattr(mod, name, fn)
+        before = K.q8_quantize_chunk_3d.launches
+        try:
+            t0 = time.perf_counter()
+            g_bar, h1, hb1, _ = rule.round(
+                q, noise, grads, {k: v.clone() for k, v in h.items()},
+                {k: v.clone() for k, v in h_bar.items()}, channel)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        check((K.q8_quantize_chunk_3d.launches == before) == plain,
+              f"{what}: the plain round launched a kernel, or the kernel "
+              f"round none")
+        outs.append((g_bar, h1, hb1, secs))
+        g_bar = h1 = hb1 = None
+    for name, a, b in zip(("g_bar", "h", "h_bar"), outs[0], outs[1]):
+        off = [k for k in a if not torch.equal(bits_of(a[k]), bits_of(b[k]))]
+        check(not off, f"{what}: the kernel round's {name} differs from the "
+                       f"plain round's at {off[:4]}")
+    log(f"{what}: one round with the kernels ({outs[0][3]:.3f} s) bitwise "
+        f"equal to the round with their plain versions ({outs[1][3]:.3f} "
+        f"s): g_bar, h, h_bar of {len(outs[0][0])} leaves")
+    del outs, grads
+    torch.cuda.empty_cache()
 
 
 def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
@@ -1535,16 +1696,17 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
     fused-VJP mode the gradients are timed plain and tapped (the encode
     inside the backward pass), and the messages are the tapped ones.
     With ``keep``, returns worker 0's gradients of that step."""
-    from repro_torch.comm.channel import FUSED_VJP_MODES, make_channel
+    from repro_torch.comm.channel import FUSED_VJP_MODES
     from repro_torch.comm.overlap import AsyncChannel
     from repro_torch.dist.worker_grads import per_worker_grads, split_batch
-    from repro_torch.launch.train import with_fused_draws, worker_loss
+    from repro_torch.launch.train import (build_channel, with_fused_draws,
+                                          worker_loss)
     from repro_torch.optim.optimizers import make_optimizer
 
     cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
     comp = tcfg.compression
     q, rule = comp.make()
-    channel = make_channel(comp, mesh)
+    channel = build_channel(comp, cfg, mesh, W)
     optimizer = make_optimizer(tcfg)
     fused = comp.comm_mode in FUSED_VJP_MODES
 
@@ -1623,6 +1785,68 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
         + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items())
         + extra)
     return g0
+
+
+NEW_CODECS = ("bernoulli", "natural_dithering", "terngrad",
+              "induced_topk_randk", "induced_topk_natural")
+
+
+def phase_codecs(cfg):
+    """The codecs ported last, one round each on the 13 full-size leaves
+    of ``cfg``: W workers' gradient-scale normal values (seed 7) through
+    ``MeshChannel("dense").push_mean`` -- each worker's encode and decode,
+    then the exact worker mean.  Bits: the structural codecs' equal the
+    leaves' ``aot_wire_bits`` times W, added in f32 leaf by leaf as the
+    uplink adds them; ``BernoulliP``'s the live count (each fired
+    message's values, one flag bit a message), its ``aot_wire_bits``
+    expectation beside it.  Messages and mean finite.  No kernel: the
+    codecs are plain PyTorch, as the reference's are plain jnp.  Returns
+    the launches (all 0)."""
+    from repro_torch.comm.channel import MeshChannel
+    from repro_torch.comm.wire import AddressedNoise
+    from repro_torch.core.compressors import aot_wire_bits, make_compressor
+    from repro_torch.models.model import param_specs
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = {path: torch.randn((W, *shape), generator=gen, device="cuda") * 0.02
+         for path, shape, _ in param_specs(cfg)}
+    channel = MeshChannel(mode="dense")
+    wrappers = reset_launches()
+    for name in NEW_CODECS:
+        q = make_compressor(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, mean, bits = channel.push_mean(q, AddressedNoise(3, "cuda"), g)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(all(torch.isfinite(v).all().item() for v in m.values()) and
+              all(torch.isfinite(v).all().item() for v in mean.values()),
+              f"codec {name}: messages not finite")
+        expect = np.float32(0)
+        aot = 0.0
+        for k, v in g.items():
+            one = aot_wire_bits(q, tuple(v.shape[1:]))
+            aot += W * one
+            if name == "bernoulli":
+                d = v[0].numel()
+                fired = int(sum(bool(m[k][j].any()) for j in range(W)))
+                leaf = np.float32(fired * 32 * d + W)
+            else:
+                leaf = np.float32(W * one)
+            expect = np.float32(expect + leaf)
+        check(bits.item() == float(expect),
+              f"codec {name}: bits {bits.item()} != {float(expect)}")
+        extra = (f" (aot expectation {aot:.6e})" if name == "bernoulli"
+                 else " (aot_wire_bits x W)")
+        log(f"codec {name} over {len(g)} full-size leaves, w={W}: bits "
+            f"{bits.item():.0f}{extra}; push_mean {secs:.3f} s")
+        del m, mean
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(not any(launches.values()),
+          f"codecs: the plain codecs launched kernels {launches}")
+    del g
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- the convex path (Algorithm 1 and 2 on the paper's problems) ------------
@@ -2347,6 +2571,43 @@ def main(argv=None):
                        f"{STEPS} steps: {off[:4]}")
         log(f"{mode}: params, h and h_bar after {STEPS} steps bitwise equal "
             f"to {ref} ({len(want)} leaf digests)")
+    # the production layout on one card: the pod stage and the model
+    # shards' rings, their kernels held against the plain versions in one
+    # round; a mesh of one pod is the data ring
+    pod_mesh = dict(pod=2, data=2, model=2)
+    name = "qwen3-0.6b q8_ring_fused q8_block" + mesh_name(pod_mesh)
+    by_path[name], _, _ = phase_main_path(
+        qwen, "q8_ring_fused", mesh_kw=pod_mesh, plain_round=True)
+    torch.cuda.empty_cache()
+    one_pod = dict(pod=1, data=4, model=1)
+    name = "qwen3-0.6b q8_ring_fused q8_block" + mesh_name(one_pod)
+    by_path[name], got, _ = phase_main_path(
+        qwen, "q8_ring_fused", mesh_kw=one_pod, digest=True, breakdown=False)
+    want = digests["qwen3-0.6b q8_ring_fused q8_block"]
+    off = [k for k in want if got[k] != want[k]]
+    check(not off, f"{name}: {len(off)} leaves differ from the data ring's")
+    log(f"{name}: params, h and h_bar after {STEPS} steps bitwise equal to "
+        f"HostMesh(data=4)'s ({len(want)} leaf digests)")
+    torch.cuda.empty_cache()
+    # shared-pattern Rand-K with the diagnostics on, against the same run
+    # without them
+    runs = {}
+    for diag in (True, False):
+        name = "qwen3-0.6b randk_shared natural" + (" diag" if diag else "")
+        by_path[name], runs[diag], _ = phase_main_path(
+            qwen, "randk_shared", "natural", digest=True, diag=diag,
+            breakdown=diag)
+        torch.cuda.empty_cache()
+    off = [k for k in runs[False] if runs[True][k] != runs[False][k]]
+    check(not off, f"randk_shared: the diag run's state differs at {off[:4]}")
+    log(f"randk_shared: params, h and h_bar after {STEPS} steps with the "
+        f"diagnostics bitwise equal to the run without ({len(off)} of "
+        f"{len(runs[False])} leaf digests differ)")
+    del runs
+    by_path["qwen3-0.6b codecs"] = phase_codecs(qwen)
+    by_path["qwen3-0.6b dense natural_dithering"], _, _ = phase_main_path(
+        qwen, "dense", "natural_dithering")
+    torch.cuda.empty_cache()
     by_path["qwen3-0.6b entry points"] = phase_entry_points(*entry_inputs)
     del entry_inputs
     torch.cuda.empty_cache()

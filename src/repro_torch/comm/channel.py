@@ -14,13 +14,16 @@ pass already emitted (``comm.fused_vjp``).
 ``SimChannel`` is the parameter server (exact worker mean);
 ``MeshChannel`` is the production aggregation of the stacked-worker
 step over a ``launch.mesh.HostMesh``, in the ``dense`` (exact mean),
-``q8_ring`` (``Int8Stochastic`` ring) or ``q8_ring_fused`` (the ring on
-the q8 kernels) format (``dist.collectives``); the ``ef21`` and
-``efbv`` comm modes aggregate densely.  ``AsyncChannel``
+``randk_shared`` (shared-pattern Rand-K), ``q8_ring``
+(``Int8Stochastic`` ring) or ``q8_ring_fused`` (the ring on the q8
+kernels) format (``dist.collectives``); its ``wspecs`` (worker-stacked
+specs, ``dist.sharding``) give each ``model`` shard of a leaf a ring of
+its own, and a mesh with a ``pod`` axis adds the pod stage.  The
+``ef21`` and ``efbv`` comm modes aggregate densely.  ``AsyncChannel``
 (``comm.overlap``) is the overlap runtime: the ``q8_ring_overlap`` and
 ``efbv_overlap`` modes, and ``q8_ring_fused_vjp`` with one bucket per
-leaf.  The other aggregation formats raise ``NotImplementedError``,
-naming the ROADMAP item that adds them.
+leaf.  The tuner's ``auto`` raises ``NotImplementedError``, naming the
+ROADMAP item that adds it.
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ Tree = Dict[str, torch.Tensor]
 
 #: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
 _NOT_PORTED = {
-    "randk_shared": "ROADMAP queue 1, item 5 (collectives)",
     "auto": "ROADMAP queue 1, item 11 (tune)",
 }
 
@@ -55,7 +57,8 @@ OVERLAP_MODES = ("q8_ring_overlap", "efbv_overlap")
 FUSED_VJP_MODES = ("q8_ring_fused_vjp",)
 
 #: every comm mode the reference accepts: the ported ones first
-CHANNEL_MODES = (("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv", "sim")
+CHANNEL_MODES = (("dense", "randk_shared", "q8_ring", "q8_ring_fused",
+                  "ef21", "efbv", "sim")
                  + OVERLAP_MODES + FUSED_VJP_MODES + tuple(_NOT_PORTED))
 
 
@@ -164,11 +167,15 @@ class SimChannel(Channel):
 @dataclass(frozen=True, eq=False)
 class MeshChannel(Channel):
     """Production channel on a ``HostMesh``; ``mode`` picks the
-    aggregation wire format, ``q8_block_rows`` the fused q8 codec's
-    scale block (None = the kernel default)."""
+    aggregation wire format, ``randk_q`` the keep fraction of
+    ``randk_shared``, ``wspecs`` the worker-stacked specs of the ring
+    modes (``{path: spec}``, ``dist.sharding``), ``q8_block_rows`` the
+    fused q8 codec's scale block (None = the kernel default)."""
 
     mode: str = "dense"
     mesh: Any = None
+    randk_q: float = 0.05
+    wspecs: Any = None
     q8_block_rows: Optional[int] = None
 
     def __post_init__(self):
@@ -179,10 +186,14 @@ class MeshChannel(Channel):
 
     def reduce(self, noise, wtree, leaf_indices=None):
         """``leaf_indices``: the leaves' global tree positions, which the
-        ring's draws are bound to (default: their places in ``wtree``)."""
+        aggregation's draws are bound to (default: their places in
+        ``wtree``); the channel's specs of those leaves go with them."""
         if self.mode == "dense":
             return {k: WorkerMean.of_rows(a) for k, a in wtree.items()}
+        wspecs = (None if self.wspecs is None
+                  else {k: self.wspecs[k] for k in wtree})
         means = compressed_tree_mean(wtree, self.mode, noise, self.mesh,
+                                     randk_q=self.randk_q, wspecs=wspecs,
                                      q8_block_rows=self.q8_block_rows,
                                      leaf_indices=leaf_indices)
         return {k: WorkerMean(value=v) for k, v in means.items()}
@@ -202,12 +213,15 @@ def aggregation_mode_of(mode_or_cfg) -> str:
     return mode_or_cfg
 
 
-def make_channel(mode_or_cfg="dense", mesh=None, *,
-                 bucket_bytes: Optional[int] = None) -> Channel:
+def make_channel(mode_or_cfg="dense", mesh=None, *, randk_q: float = 0.05,
+                 wspecs=None, bucket_bytes: Optional[int] = None) -> Channel:
     """Build a Channel from a comm-mode string or a CompressionConfig
-    (whose ``q8_block_rows`` sets the fused ring's scale block and
+    (whose ``randk_q`` sets ``randk_shared``'s keep fraction in place of
+    the argument, ``q8_block_rows`` the fused ring's scale block and
     ``overlap_bucket_bytes`` the overlap runtime's bucket budget), over
-    ``mesh`` (a ``HostMesh``; the ring modes need one).  The overlap
+    ``mesh`` (a ``HostMesh``; the ring
+    modes need one), with ``wspecs`` the ring's worker-stacked specs
+    (``dist.sharding``).  The overlap
     modes build the bucketed ``AsyncChannel`` (``bucket_bytes`` its
     per-bucket budget in uncompressed per-worker message bytes, rejected
     for every other mode); ``q8_ring_fused_vjp`` the same channel with
@@ -227,15 +241,19 @@ def make_channel(mode_or_cfg="dense", mesh=None, *,
         )
     if comm_mode == "sim":
         return SimChannel()
+    if hasattr(mode_or_cfg, "comm_mode"):
+        randk_q = mode_or_cfg.randk_q
+        if bucket_bytes is None:
+            bucket_bytes = getattr(mode_or_cfg, "overlap_bucket_bytes", None)
     kw = dict(mode=aggregation_mode_of(mode_or_cfg), mesh=mesh,
+              randk_q=randk_q, wspecs=wspecs,
               q8_block_rows=getattr(mode_or_cfg, "q8_block_rows", None))
     if not overlap:
         return MeshChannel(**kw)
     from repro_torch.comm.overlap import DEFAULT_BUCKET_BYTES, AsyncChannel
 
     if bucket_bytes is None:
-        bucket_bytes = getattr(mode_or_cfg, "overlap_bucket_bytes",
-                               DEFAULT_BUCKET_BYTES)
+        bucket_bytes = DEFAULT_BUCKET_BYTES
     return AsyncChannel(**kw, bucket_bytes=bucket_bytes,
                         per_leaf=comm_mode in FUSED_VJP_MODES)
 

@@ -29,8 +29,11 @@ source gives the same draws in any order of the calls
 as the reference's are: above 2^24 that may differ from the leaf-order
 sum in the last bit of the f32 counter.
 
-Not here yet: the reference's ``obs`` stamp recorder (ROADMAP queue 1,
-item 11) and ``wspecs`` (item 5) raise ``NotImplementedError``.
+The channel's ``wspecs`` (worker-stacked specs, ``dist.sharding``) are
+keyed by path, so each bucket's reduction takes the specs of its own
+leaves (``MeshChannel.reduce``).  Not here yet: the reference's ``obs``
+stamp recorder (ROADMAP queue 1, item 11) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -133,13 +136,13 @@ class AsyncChannel(MeshChannel):
     """The bucketed overlap channel (module docstring): ``mode`` an
     aggregation format, ``bucket_bytes`` the per-bucket budget in
     uncompressed per-worker message bytes, ``per_leaf`` one bucket per
-    leaf (the ``q8_ring_fused_vjp`` schedule)."""
+    leaf (the ``q8_ring_fused_vjp`` schedule); ``randk_q``, ``wspecs``
+    and ``q8_block_rows`` as ``MeshChannel``'s."""
 
     mode: str = "q8_ring_fused"
     bucket_bytes: int = DEFAULT_BUCKET_BYTES
     per_leaf: bool = False
     obs: Any = None
-    wspecs: Any = None
     _side: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
@@ -151,10 +154,6 @@ class AsyncChannel(MeshChannel):
             raise NotImplementedError(
                 "obs (the StampRecorder) is not ported yet: ROADMAP queue "
                 "1, item 11 (obs)")
-        if self.wspecs is not None:
-            raise NotImplementedError(
-                "wspecs (inner-dim model sharding) is not ported yet: "
-                "ROADMAP queue 1, item 5 (collectives)")
 
     def _plan(self, wtree) -> BucketPlan:
         return plan_buckets(wtree, self.bucket_bytes, per_leaf=self.per_leaf)
@@ -166,7 +165,8 @@ class AsyncChannel(MeshChannel):
 
     def _reduce_bucket(self, noise, keys, leaves, bucket: Bucket) -> Handle:
         """Issue one bucket's reduction (the leaves at ``bucket.indices``,
-        their ring draws bound to those global positions)."""
+        their aggregation draws bound to those global positions, their
+        specs the channel's for them)."""
         sub = {keys[i]: leaves[i] for i in bucket.indices}
         device = leaves[bucket.indices[0]].device
 

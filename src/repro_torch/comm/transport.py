@@ -16,8 +16,10 @@ of the reference's ``repro/comm/transport.py`` for the ``grad`` and
         naming the ROADMAP item that ports them.
 
 Noise rule (the reference's keying rule, on the port's noise sources):
-the grad wire hands its round's noise to ``rule.round`` VERBATIM, so a
-round through the wire is bitwise ``Channel.shift_round``'s; every other
+the grad wire hands its round's noise VERBATIM to ``rule.round``
+(``shift_round``, ``iterate_round``) and to ``Channel.fused_round``
+(``fused_round``), so a round through the wire is bitwise the round
+without it, and the training step routes every round through it; every other
 wire draws from its own stream, ``wire_stream(noise, name)``
 (``AddressedNoise.stream``: the CRC-32 of the wire's name becomes a
 field of every address), so no two wires share draws.
@@ -28,8 +30,10 @@ same encode the live traffic runs, so the bits cannot drift from the
 wire protocol.  The measured surfaces of the reference's Wire
 (``codec_timings``, ``codec_quality``, ``obs_snapshot``), the tune
 model's ``overlap_hidden``, ``fused`` and ``extra_traffic`` come with
-obs and tune (ROADMAP queue 1, item 11); the fused and iterate rounds
-come when the step routes its round through the grad wire (item 6).
+obs and tune (ROADMAP queue 1, item 11).  The grad wire's accounting
+codec is the aggregation's (``aggregation_wire_codec``): ``randk_shared``
+is charged ``RandK(q=randk_q, shared_pattern=True)``, whose pattern
+rides in ``meta`` and costs no bits.
 """
 
 from __future__ import annotations
@@ -185,6 +189,24 @@ class Wire:
         h_bar_new, bits)``."""
         return self.rule.round(self.msg_codec, noise, wgrads, h, h_bar,
                                self.channel)
+
+    def fused_round(self, noise, msgs, h, h_bar):
+        """The fused-backward round's tail (``comm.fused_vjp``): ``msgs``
+        are the decoded messages the backward pass emitted, drawn from
+        this round's noise, which passes on as given to
+        ``Channel.fused_round``.  Returns ``(g_bar, h_new, h_bar_new,
+        bits)``."""
+        return self.channel.fused_round(self.rule, self.msg_codec, noise,
+                                        msgs, h, h_bar)
+
+    def iterate_round(self, noise, params, wgrads, h, h_bar):
+        """Algorithm 2 (VR-GDCI): the compressed-iterate round, the noise
+        as given.  Returns ``(params, h_new, h_bar_new, bits)``."""
+        return self.rule.round(noise, params, wgrads, h, h_bar, self.channel)
+
+    def reduce_mean(self, noise, wtree):
+        """The channel's worker mean (an uncompressed step's round)."""
+        return self.channel.reduce_mean(noise, wtree)
 
     # -- the broadcast model wire ----------------------------------------
 

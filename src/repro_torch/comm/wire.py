@@ -22,12 +22,15 @@ come from one noise source; the default schedule
    two-part message, None for a one-part one.
 2. then the round's tree-level extras: ``aux_uniform(shape)``
    (Rand-DIANA's per-worker refresh draw, one uniform a worker);
-3. then, when the round aggregates through a ring
-   (``dist.collectives``), the ring's encodes: ``ring_uniform(leaf, hop,
-   shape)``, leaf order first, then hop -- hops ``0 .. n-2`` are the
-   reduce-scatter's, hop ``n-1`` is the all-gather's one encode.  Every
-   ring position uses the same draw at a given hop: the reference's ring
-   key enters its ``shard_map`` replicated.
+3. then the round's aggregation (``dist.collectives``), leaf by leaf:
+   through a ring, the ring's encodes, ``ring_uniform(leaf, hop,
+   shape)`` -- hops ``0 .. n-2`` are the reduce-scatter's, hop ``n-1``
+   is the all-gather's one encode -- then, on a mesh with more than one
+   pod, the pod stage's one encode, ``pod_uniform(leaf, shape)``; in
+   the ``randk_shared`` format the leaf's one Rand-K pattern,
+   ``shared_permutation(leaf, d)``.  Every ring position, every pod and
+   every model shard of a leaf uses the same draw: the reference's
+   aggregation key enters its ``shard_map`` replicated.
 
 Two sources implement this protocol, and so can any object with the
 same methods (the parity tests replay the draws the reference makes
@@ -93,6 +96,16 @@ class GeneratorNoise:
         shared by every ring position."""
         return self.uniform(leaf, hop, shape)
 
+    def pod_uniform(self, leaf: int, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for the pod stage's encode of leaf
+        ``leaf``, shared by every pod."""
+        return self.uniform(leaf, None, shape)
+
+    def shared_permutation(self, leaf: int, d: int) -> torch.Tensor:
+        """The ``randk_shared`` aggregation's pattern of leaf ``leaf``: a
+        permutation of ``range(d)`` (int64) shared by every worker."""
+        return self.permutation(leaf, None, d)
+
     def next_round(self) -> None:
         """Nothing: the next round's draws continue the stream."""
 
@@ -120,7 +133,7 @@ def _field(v) -> int:
 
 
 #: the kinds of draw, one address space each
-_UNIFORM, _PERMUTATION, _AUX, _RING = range(4)
+_UNIFORM, _PERMUTATION, _AUX, _RING, _POD, _PATTERN = range(6)
 
 
 class AddressedNoise:
@@ -194,6 +207,19 @@ class AddressedNoise:
         return torch.rand(shape, generator=self._at(_RING, leaf, hop, None),
                           device=self.device, dtype=torch.float32)
 
+    def pod_uniform(self, leaf: int, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for the pod stage's encode of leaf
+        ``leaf``, shared by every pod."""
+        return torch.rand(shape, generator=self._at(_POD, leaf, None, None),
+                          device=self.device, dtype=torch.float32)
+
+    def shared_permutation(self, leaf: int, d: int) -> torch.Tensor:
+        """The ``randk_shared`` aggregation's pattern of leaf ``leaf``: a
+        permutation of ``range(d)`` (int64) shared by every worker."""
+        return torch.randperm(d, generator=self._at(_PATTERN, leaf, None,
+                                                    None),
+                              device=self.device)
+
     def next_round(self) -> None:
         """Address the next round's draws."""
         self.round += 1
@@ -218,6 +244,13 @@ class WorkerNoise:
         return self.source.permutation(self.leaf, self.worker, d,
                                        part=self.part)
 
+    def part_of(self, name: str) -> "WorkerNoise":
+        """The draws of part ``name`` of a two-part codec (``Induced``):
+        the part joined to this draw's own, ``"q/c"`` under DIANA's
+        ``"q"``."""
+        part = name if self.part is None else f"{self.part}/{name}"
+        return WorkerNoise(self.source, self.leaf, self.worker, part)
+
 
 class _SharedDraw:
     """The draws of a shared-pattern codec: each kind is drawn once, at
@@ -227,6 +260,7 @@ class _SharedDraw:
     def __init__(self, noise: WorkerNoise):
         self.noise = noise
         self.drawn = {}
+        self.parts = {}
 
     def _once(self, what, fn):
         if what not in self.drawn:
@@ -238,6 +272,11 @@ class _SharedDraw:
 
     def permutation(self, d: int):
         return self._once(("p", d), lambda: self.noise.permutation(d))
+
+    def part_of(self, name: str) -> "_SharedDraw":
+        if name not in self.parts:
+            self.parts[name] = _SharedDraw(self.noise.part_of(name))
+        return self.parts[name]
 
 
 @dataclass(frozen=True)

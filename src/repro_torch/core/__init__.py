@@ -13,9 +13,11 @@ import importlib
 
 _EXPORTS = {
     "compressors": (
-        "Compressor", "Contractive", "Identity", "Int8Stochastic",
-        "NaturalCompression", "PackedBits", "RandK", "TopK", "Unbiased",
-        "Zero", "make_compressor", "wire_bits"),
+        "BernoulliP", "Compressor", "Contractive", "Identity", "Induced",
+        "Int8Stochastic", "NaturalCompression", "NaturalDithering",
+        "PackedBits", "RandK", "ScaledSign", "TernGrad", "TopK", "Unbiased",
+        "Zero", "aot_wire_bits", "make_compressor", "shifted", "tree_bits",
+        "tree_compress", "tree_shifted_compress", "tree_size", "wire_bits"),
     "shift_rules": (
         "SHIFT_RULES", "DianaShift", "EF21Shift", "EFBVShift", "FixedShift",
         "RandDianaShift", "ShiftRule", "StarShift", "dense_message_bits",

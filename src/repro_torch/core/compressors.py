@@ -31,13 +31,19 @@ function:
   ``omega(d)`` / ``delta(d)``
         variance constants of the classes U(omega) and B(delta).
 
-Codecs still to be ported (BernoulliP, NaturalDithering, TernGrad,
-Induced) raise ``NotImplementedError`` from ``make_compressor``.
+A two-part codec (``Induced``) draws its parts from ``rand.part_of("c")``
+and ``rand.part_of("q")``: two parts of the one address.
+``aot_wire_bits`` (and ``tree_bits``) quote the bits of one message
+ahead of time from ``payload_like``; ``BernoulliP``, whose payload size
+is itself random, charges live payloads what they carry and quotes the
+expectation on meta tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import struct
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Tuple
 
@@ -45,10 +51,6 @@ import torch
 
 from repro_torch.kernels.natural.ref import TINY, ftz
 from repro_torch.kernels.q8ring.ref import fma_f32
-
-#: ROADMAP item that ports the remaining codecs
-_CODECS_ITEM = "ROADMAP queue 1, item 2 (codecs)"
-
 
 class ShapeDtype(NamedTuple):
     """Shape, dtype and device of a tensor (the reference's
@@ -118,11 +120,20 @@ def wire_bits(payload) -> float:
     return float(total)
 
 
-def f32_bits(bits: float = 0.0) -> torch.Tensor:
-    """An f32 bit counter: 0-d, on the CPU (it is structural, computed
-    from shapes, and never touches the device).  Adding leaf counts to
-    it one by one rounds as the reference's f32 counter does."""
+def f32_bits(bits=0.0) -> torch.Tensor:
+    """An f32 bit counter: 0-d, on the CPU when the count is structural
+    (computed from shapes, never touching the device); a count that is a
+    tensor (``BernoulliP``'s, which depends on its draws) stays where it
+    is.  Adding leaf counts to it one by one rounds as the reference's
+    f32 counter does."""
+    if isinstance(bits, torch.Tensor):
+        return bits.to(torch.float32)
     return torch.tensor(bits, dtype=torch.float32)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest f32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 class _MetaDraw:
@@ -133,6 +144,14 @@ class _MetaDraw:
 
     def permutation(self, d: int):
         return torch.empty(d, dtype=torch.int64, device="meta")
+
+    def part_of(self, name: str) -> "_MetaDraw":
+        return self
+
+
+def _is_meta(t) -> bool:
+    return getattr(getattr(t, "data", t), "device", None) == torch.device(
+        "meta")
 
 
 @dataclass(frozen=True)
@@ -462,6 +481,145 @@ class RandK(Unbiased):
 
 
 @dataclass(frozen=True)
+class BernoulliP(Unbiased):
+    """B_p -- the full vector scaled 1/p with probability p, else 0;
+    omega = 1/p - 1.  The C_i of Rand-DIANA (Table 2).
+
+    The payload is a flag (``sent``, one draw ``rand(())`` < p, the
+    reference's Bernoulli) and the values, zeros when the flag is off.
+    ``x / p`` is the product with f32(1 / f32(p)), as XLA compiles the
+    reference's division by a constant.  Its size is a random variable,
+    so ``wire_bits`` charges a live payload what it carries (a traced
+    count, on the payload's device) and quotes the expectation for a
+    payload of meta tensors (``payload_like``, ``aot_wire_bits``)."""
+
+    p: float = 0.1
+
+    def encode(self, rand, x):
+        keep = rand(()) < self.p
+        values = torch.where(keep, x * _f32(1.0 / _f32(self.p)),
+                             torch.zeros((), dtype=x.dtype, device=x.device))
+        return {"sent": keep, "values": values}, {}
+
+    def decode(self, payload, meta, like):
+        return payload["values"].reshape(like.shape).to(like.dtype)
+
+    def wire_bits(self, payload):
+        """Flag bits always, the full vector for each message that was
+        sent: ``sum(sent) * bits_per_msg + n_msg`` in f32 (one rounding,
+        as XLA contracts the reference's), for one payload or a list of
+        per-worker payloads; the expectation ``p * bits_per_msg * n_msg
+        + n_msg`` (a float) on meta tensors."""
+        if isinstance(payload, (list, tuple)):
+            sent = [p["sent"] for p in payload]
+            n_msg = len(payload)
+            one = payload[0]["values"]
+        else:
+            sent = [payload["sent"]]
+            n_msg = _numel(payload["sent"].shape)
+            one = payload["values"]
+        per_msg = (one.element_size() * 8 * _numel(one.shape)
+                   // (1 if isinstance(payload, (list, tuple)) else n_msg))
+        if _is_meta(sent[0]):
+            return self.p * per_msg * n_msg + float(n_msg)
+        count = sum(s.reshape(-1).to(torch.float32).sum() for s in sent)
+        return fma_f32(count, torch.tensor(_f32(per_msg), dtype=torch.float32,
+                                           device=count.device),
+                       torch.tensor(float(n_msg), dtype=torch.float32,
+                                    device=count.device))
+
+    def omega(self, d):
+        return 1.0 / self.p - 1.0
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e (f32) for integer-valued ``e`` in [-126, 127], from bits."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+@dataclass(frozen=True)
+class NaturalDithering(Unbiased):
+    """Natural dithering with s levels w.r.t. the l2 norm (Horvath et
+    al., 2019a) -- the "ND" compressor of the paper's Fig. 1.
+
+    Levels are the exponent lattice {2^0, 2^-1, ..., 2^-(s-1), 0} applied
+    to |x| / ||x||_2, with unbiased stochastic rounding between
+    neighbouring levels; omega <= 1/8 + 2^(1-s) min(sqrt(d), 2^(1-s) d).
+    Payload per coordinate: a packed ceil(log2(s+1))-bit level code (0 =
+    the zero level, c >= 1 = 2^-(c-1)) and a 1-bit sign, plus one f32
+    norm per message.
+
+    The norm is an f32 sum of squares over every element, whose order
+    differs from XLA's (a few ulps).  The level index ``floor(-log2 y)``
+    and the levels are read from the float's bits, exactly (the
+    reference's ``log2`` and ``exp2`` on XLA's CPU are not: ROADMAP
+    queue 3, items 4-5); subnormal inputs are flushed to zero, as XLA's
+    CPU does; NaN codes and signs are 0, as XLA's int8 convert gives
+    them.  Plain PyTorch, as the reference's is plain jnp."""
+
+    s: int = 8
+
+    def encode(self, rand, x):
+        xf = ftz(x.to(torch.float32))
+        return self.encode_with_norm(rand, x, torch.sqrt(torch.sum(xf * xf)))
+
+    def encode_with_norm(self, rand, x, norm: torch.Tensor):
+        """``encode`` with the f32 norm given (the parity tests hand it
+        the reference's, whose summation order is XLA's)."""
+        xf = ftz(x.to(torch.float32))
+        safe = torch.clamp_min(norm, TINY)
+        y = ftz(xf.abs() / safe)                       # in [0, 1]
+        bits = y.view(torch.int32)
+        j = -((bits >> 23) - 127) - ((bits & _MANT) != 0).to(torch.int32)
+        j = j.clamp(0, self.s - 1)                     # floor(-log2 y)
+        top = j >= self.s - 1
+        hi = _pow2(-j)
+        lo = torch.where(top, 0.0, _pow2(-j - 1))
+        take_hi = rand(tuple(x.shape)) < (y - lo) / (hi - lo)
+        code = torch.where(take_hi, j + 1, torch.where(top, 0, j + 2))
+        code = torch.where((y == 0) | torch.isnan(y), 0, code)
+        sign = torch.sign(xf).nan_to_num_(nan=0.0).to(torch.int8)
+        return ({"code": PackedBits(code.to(torch.int8),
+                                    _index_bits(self.s + 1)),
+                 "sign": PackedBits(sign, 1), "norm": norm}, {})
+
+    def decode(self, payload, meta, like):
+        code = payload["code"].data.to(torch.int32)
+        lvl = torch.where(code > 0, _pow2(1 - code.clamp_min(1)), 0.0)
+        out = payload["sign"].data.to(torch.float32) * payload["norm"] * lvl
+        return out.reshape(like.shape).to(like.dtype)
+
+    def omega(self, d):
+        t = 2.0 ** (1 - self.s)
+        return 0.125 + t * min(math.sqrt(d), t * d)
+
+
+@dataclass(frozen=True)
+class TernGrad(Unbiased):
+    """Ternary quantization (Wen et al., 2017): sign(x) ||x||_inf
+    Bern(|x| / ||x||_inf).  Unbiased; omega is data dependent, bounded by
+    sqrt(d) in the worst case.  Payload: one packed 2-bit ternary digit
+    per coordinate and an f32 scale (the max magnitude, at least the
+    smallest normal f32).  Subnormal inputs are flushed to zero, as XLA's
+    CPU does; a NaN digit is 0.  Plain PyTorch."""
+
+    def encode(self, rand, x):
+        xf = ftz(x.to(torch.float32))
+        a = xf.abs()
+        m = torch.clamp_min(a.amax(), TINY)
+        b = rand(tuple(x.shape)) < a / m
+        t = (torch.sign(xf) * b.to(torch.float32)).nan_to_num_(nan=0.0)
+        return {"tern": PackedBits(t.to(torch.int8), 2), "scale": m}, {}
+
+    def decode(self, payload, meta, like):
+        out = payload["tern"].data.to(torch.float32) * payload["scale"]
+        return out.reshape(like.shape).to(like.dtype)
+
+    def omega(self, d):
+        return math.sqrt(d)  # worst-case bound
+
+
+@dataclass(frozen=True)
 class ScaledSign(Contractive):
     """(||x||_1 / d) * sign(x) (Karimireddy et al.), in B(||x||_1^2 /
     (d ||x||_2^2)); worst-case delta = 1/d.  The model wire's ``sign``
@@ -490,6 +648,113 @@ class ScaledSign(Contractive):
         return False
 
 
+@dataclass(frozen=True)
+class Induced(Unbiased):
+    """C_ind(x) = C(x) + Q(x - C(x)) in U(omega (1 - delta)) for C in
+    B(delta), Q in U(omega) (Def. 4 / Lemma 3; Horvath & Richtarik, 2021):
+    a biased operator made unbiased with less variance than Q alone.
+    The wire message is both payloads; decode sums the two decoded
+    parts.  C draws from part ``"c"`` of the draw, Q from part ``"q"``
+    (``part_of``), the reference's split of one key."""
+
+    c: Contractive = dataclasses.field(default_factory=lambda: TopK(0.1))
+    q: Unbiased = dataclasses.field(default_factory=lambda: RandK(0.1))
+
+    def encode(self, rand, x):
+        cp, cm = self.c.encode(rand.part_of("c"), x)
+        cx = self.c.decode(cp, cm, ShapeDtype.of(x))
+        qp, qm = self.q.encode(rand.part_of("q"), x - cx)
+        return {"c": cp, "q": qp}, {"c": cm, "q": qm}
+
+    def decode(self, payload, meta, like):
+        return (self.c.decode(payload["c"], meta["c"], like)
+                + self.q.decode(payload["q"], meta["q"], like))
+
+    def wire_bits(self, payload):
+        """The two parts' ``wire_bits``, each the part's own (a nested
+        ``BernoulliP`` charges what it carries)."""
+        if isinstance(payload, (list, tuple)):
+            return (self.c.wire_bits([p["c"] for p in payload])
+                    + self.q.wire_bits([p["q"] for p in payload]))
+        return self.c.wire_bits(payload["c"]) + self.q.wire_bits(payload["q"])
+
+    def payload_like(self, like):
+        return {"c": self.c.payload_like(like), "q": self.q.payload_like(like)}
+
+    def omega(self, d):
+        return self.q.omega(d) * (1.0 - self.c.delta(d))
+
+
+# --------------------------------------------------------------------------
+# Shifted compression and tree helpers
+# --------------------------------------------------------------------------
+
+
+def shifted(q: Compressor, h: torch.Tensor, rand, x: torch.Tensor
+            ) -> torch.Tensor:
+    """Q_h(x) = h + Q(x - h): the shifted compressor of Definition 3 (if
+    Q is in U(omega; 0), Q_h is in U(omega; h): Lemma 1 with v = h)."""
+    return h + q(rand, x - h)
+
+
+def leaf_keys(noise, tree) -> list:
+    """The per-leaf draw objects of a tree (the reference folds the leaf
+    index into its key): leaf i's draws at address ``(leaf=i,
+    worker=None)`` of ``noise``."""
+    from repro_torch.comm.wire import LeafNoise
+
+    return [LeafNoise(noise, i).worker(None) for i in range(len(tree))]
+
+
+def tree_compress(q: Compressor, noise, tree):
+    """A compressor applied leaf-wise to a tree ``{path: tensor}``, each
+    leaf with its own draws (``leaf_keys``)."""
+    return {k: q(rand, x)
+            for rand, (k, x) in zip(leaf_keys(noise, tree), tree.items())}
+
+
+def tree_shifted_compress(q: Compressor, noise, tree, shift_tree):
+    """Leaf-wise ``h + Q(x - h)`` over two trees of the same structure."""
+    if list(tree) != list(shift_tree):
+        raise ValueError(
+            "tree_shifted_compress: shift_tree structure does not match "
+            f"tree (shifts would mis-pair with leaves): tree={list(tree)}, "
+            f"shift_tree={list(shift_tree)}")
+    return {k: shifted(q, shift_tree[k], rand, x)
+            for rand, (k, x) in zip(leaf_keys(noise, tree), tree.items())}
+
+
+def aot_wire_bits(q: Compressor, shape, dtype=torch.float32) -> float:
+    """Structural wire bits of ONE compressed message, ahead of time: the
+    codec's own encode on meta tensors (``payload_like``), no data, no
+    draw.  ``shape`` is an int d (a flat d-vector) or a shape tuple.
+    ``BernoulliP`` quotes its expectation."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    like = ShapeDtype(tuple(shape), dtype, torch.device("meta"))
+    return float(q.wire_bits(q.payload_like(like)))
+
+
+def tree_bits(q: Compressor, tree) -> float:
+    """``aot_wire_bits`` summed over a tree's leaves, each a flat f32
+    message of its size (anything with ``.shape``)."""
+    return float(sum(aot_wire_bits(q, _numel(leaf.shape))
+                     for leaf in tree.values()))
+
+
+def tree_size(tree) -> int:
+    """Elements in a tree's leaves (anything with ``.shape``)."""
+    return int(sum(_numel(leaf.shape) for leaf in tree.values()))
+
+
+def _induced_topk_randk(q: float = 0.1) -> Induced:
+    return Induced(c=TopK(q), q=RandK(q))
+
+
+def _induced_topk_natural(q: float = 0.1) -> Induced:
+    return Induced(c=TopK(q), q=NaturalCompression())
+
+
 def _fused_q8(**kw) -> Compressor:
     # the CUDA-fused blockwise-int8 codec lives with its kernel
     from repro_torch.kernels.q8ring.ops import FusedQ8
@@ -497,30 +762,30 @@ def _fused_q8(**kw) -> Compressor:
     return FusedQ8(**kw)
 
 
-#: every name the reference's registry accepts; the port builds these
-_PORTED = {
+#: every name the reference's registry accepts
+_REGISTRY = {
     "identity": Identity,
     "zero": Zero,
     "randk": RandK,
+    "bernoulli": BernoulliP,
+    "natural_dithering": NaturalDithering,
+    "natural": NaturalCompression,
+    "terngrad": TernGrad,
     "int8": Int8Stochastic,
     "q8_block": _fused_q8,
-    "natural": NaturalCompression,
     "topk": TopK,
     "sign": ScaledSign,
+    "induced": Induced,
+    # the induced compressor (Lemma 3) of biased TopK made unbiased by
+    # RandK or natural compression; plain signatures, so unknown
+    # arguments raise as the dataclass constructors do
+    "induced_topk_randk": _induced_topk_randk,
+    "induced_topk_natural": _induced_topk_natural,
 }
-_NOT_PORTED = ("bernoulli", "natural_dithering", "terngrad",
-               "induced", "induced_topk_randk",
-               "induced_topk_natural")
 
 
 def make_compressor(name: str, **kw) -> Compressor:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet: {_CODECS_ITEM}"
-        )
-    if name not in _PORTED:
+    if name not in _REGISTRY:
         raise ValueError(
-            f"unknown compressor {name!r}; have "
-            f"{sorted(_PORTED) + sorted(_NOT_PORTED)}"
-        )
-    return _PORTED[name](**kw)
+            f"unknown compressor {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**kw)

@@ -1,1 +1,2 @@
-"""Per-worker gradients (``worker_grads``) and collectives (``collectives``)."""
+"""Per-worker gradients (``worker_grads``), collectives (``collectives``)
+and the partition specs of the mesh (``sharding``)."""

@@ -10,9 +10,10 @@ shares the codecs and their structural wire accounting.
 Decode-shape policy (the reference's): ``decode_32k`` uses the
 full-length cache; ``long_500k`` the native O(1) state for ssm and an
 8192-token sliding-window ring cache for every attention-bearing arch;
-the audio enc-dec skips ``long_500k``.  The reference's XLA sharding and
-dry-run surfaces (``decode_state_pspecs``, ``decode_specs``) come with
-ROADMAP queue 1, items 5 and 11.
+the audio enc-dec skips ``long_500k``.  ``decode_state_pspecs`` gives the
+decode state's partition specs on a mesh (``dist.sharding``); the
+reference's dry-run surface ``decode_specs`` comes with ROADMAP queue 1,
+item 11.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
           [--smoke] [--batch B] [--prompt-len P] [--gen-len G] \\
@@ -60,6 +61,36 @@ def build_serve_step(cfg: ModelConfig):
     def serve_step(params, state, tok, pos: int):
         return M.decode_step(params, cfg, tok, state, pos)
     return serve_step
+
+
+def decode_state_pspecs(state_shapes, mesh) -> dict:
+    """Cache sharding: batch over the worker axes, sequence over
+    ``model``, by the last part of each leaf's path
+    (``models.model.make_decode_state``):
+
+      attention ``k``/``v``  (L, B, C, KV, Dh) -> (None, data, model, ...)
+      mla ``ckv``/``kr``     (L, B, C, r)      -> (None, data, model, None)
+      ``kpos``               (L, C)            -> replicated
+      recurrent states       (L, B, ...)       -> batch over data
+
+    validated against the mesh (``dist.sharding.validate_pspecs``)."""
+    from repro_torch.dist.sharding import PSpec, validate_pspecs
+
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    data = data_axes if data_axes else None
+    specs = {}
+    for path, leaf in state_shapes.items():
+        nd = len(leaf.shape)
+        last = path.split("/")[-1]
+        if last == "kpos":
+            specs[path] = PSpec()
+            continue
+        if last in ("k", "v", "ckv", "kr"):
+            dims = [None, data, "model"] + [None] * (nd - 3)
+        else:
+            dims = [None, data] + [None] * (nd - 2)
+        specs[path] = PSpec(*dims[:nd])
+    return validate_pspecs(state_shapes, specs, mesh)
 
 
 def broadcast_params(params, compressor: str = "identity", *, noise=None,

@@ -3,15 +3,22 @@ the production step, the port of the reference's
 ``repro/launch/train.py`` for this slice.
 
 One step: per-worker gradients (``dist.worker_grads``, W workers stacked
-on one device), one shift-rule round through the channel
-(``rule.round``: message -> aggregate -> apply; the codec's encode and
-decode run the CUDA kernels on a GPU, and so do the hops of the
-``q8_ring_fused`` aggregation over the mesh's ``data`` axis), then
-AdamW.  The overlap modes (``q8_ring_overlap``, ``efbv_overlap``) run
+on one device), one shift-rule round through the transport's grad wire
+(``comm.transport``: ``rule.round``, message -> aggregate -> apply,
+through the channel; the codec's encode and decode run the CUDA kernels
+on a GPU, and so do the hops of the ``q8_ring_fused`` aggregation over
+the mesh's ``data`` axis, each ``model`` shard's ring and the pod
+stage), then AdamW.  ``build_channel`` gives the ring and
+``randk_shared`` modes the worker-stacked specs of ``dist.sharding``
+(``HostMesh(pod=2, data=2, model=2)`` runs the reference's production
+layout on one device).  The overlap modes (``q8_ring_overlap``, ``efbv_overlap``) run
 the round bucket by bucket (``comm.overlap``); ``q8_ring_fused_vjp``
 encodes each worker's messages inside its backward pass
 (``comm.fused_vjp``) and runs only the round's reduce/apply tail.
-There is no per-rule math here.  The reference splits a PRNG key per
+There is no per-rule math here.  ``diag=True`` adds the shift rules'
+diagnostics (``ef_err_norm``, ``grad_sq``, ``shift_residual_sq``,
+``h_bar_drift``) to the metrics, and nothing else: the state is bitwise
+the ``diag=False`` state.  The reference splits a PRNG key per
 step; the port draws the round's uniforms from the state's noise source
 (``comm.wire``: by default ``AddressedNoise``, whose draws do not depend
 on the order of the calls), which the step moves to the next round at
@@ -24,8 +31,9 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
           [--compressor natural|topk|randk|q8_block|...] \
           [--shift-rule diana|rand_diana|vr_gdci|...] \
-          [--comm-mode dense|q8_ring|q8_ring_fused|ef21|efbv|
-                       q8_ring_overlap|efbv_overlap|q8_ring_fused_vjp] \
+          [--comm-mode dense|randk_shared|q8_ring|q8_ring_fused|ef21|
+                       efbv|q8_ring_overlap|efbv_overlap|
+                       q8_ring_fused_vjp] \
           [--drift-resync-every N] [--efbv-eta ETA] [--efbv-nu NU] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
 
@@ -48,18 +56,27 @@ from repro_torch.comm.channel import (
     make_channel,
     resync_h_bar,
 )
+from repro_torch.comm.transport import build_transport
 from repro_torch.comm.wire import AddressedNoise
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
-from repro_torch.core.compressors import f32_bits
+from repro_torch.core.compressors import ShapeDtype, f32_bits
 from repro_torch.core.iterate_comp import VRGDCI
-from repro_torch.core.shift_rules import SHIFT_RULES
+from repro_torch.core.shift_rules import SHIFT_RULES, residual_sq_diag
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import dense_mean
+from repro_torch.dist.sharding import (
+    PSpec,
+    params_pspecs,
+    validate_pspecs,
+    worker_stacked_pspec,
+    worker_stacked_pspecs,
+)
 from repro_torch.dist.worker_grads import per_worker_grads, split_batch
 from repro_torch.launch.mesh import HostMesh, make_host_mesh, n_workers
 from repro_torch.models import model as M
-from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.optim.optimizers import OptState, make_optimizer
 
 #: CLI comm modes: the channel registry minus the reference-only
 #: parameter server (unported modes raise from ``make_channel``)
@@ -137,18 +154,65 @@ def with_fused_draws(wbatch, rule, q, state: TrainState, w: int):
     return wbatch
 
 
+def params_like(cfg: ModelConfig) -> dict:
+    """``{path: ShapeDtype}`` of ``cfg``'s params, on the meta device."""
+    dtype = getattr(torch, cfg.dtype)
+    return {path: ShapeDtype(tuple(shape), dtype, torch.device("meta"))
+            for path, shape, _ in M.param_specs(cfg)}
+
+
+def build_channel(comp: CompressionConfig, cfg: ModelConfig,
+                  mesh: Optional[HostMesh], w: int):
+    """The channel of this run over ``mesh`` (``None``: one position),
+    with the worker-stacked specs of ``dist.sharding`` when the
+    aggregation runs on the ring or in ``randk_shared`` and a mesh is
+    given: each ``model`` shard of a leaf then runs its own ring."""
+    wspecs = None
+    if (comp.enabled and mesh is not None and comp.aggregation_mode in
+            ("q8_ring", "q8_ring_fused", "randk_shared")):
+        wspecs = worker_stacked_pspecs(mesh, params_like(cfg), w)
+    return make_channel(comp, HostMesh() if mesh is None else mesh,
+                        wspecs=wspecs)
+
+
+def _tree_dist(a, b) -> torch.Tensor:
+    """The l2 distance ``||a - b||`` over two trees, in f32."""
+    sq = None
+    for k, x in a.items():
+        d = x.to(torch.float32) - b[k].to(torch.float32)
+        s = torch.sum(d * d)
+        sq = s if sq is None else sq + s
+    return torch.sqrt(sq)
+
+
+def _worker_mean_f32(wtree):
+    return dense_mean({k: v.to(torch.float32) for k, v in wtree.items()})
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
-                     mesh: Optional[HostMesh] = None):
+                     mesh: Optional[HostMesh] = None, diag: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     is ``{"tokens": (B, S)}`` on the state's device, B divisible by ``w``.
     The ring aggregation modes run over ``mesh`` (``None``: one position,
-    where the ring is the exact sum).
+    where the ring is the exact sum), with its ``model`` shards and pod
+    stage (``build_channel``).  Every round goes through the transport's
+    grad wire, its noise passed on as given.
+
+    ``diag=True`` adds the shift rules' diagnostics to the METRICS only:
+    ``ef_err_norm`` (||g_bar - mean_i g_i||, the round's compression
+    error), ``grad_sq`` and ``shift_residual_sq`` (``residual_sq_diag``
+    against the shifts BEFORE the round, what the wire carried) and
+    ``h_bar_drift`` (||h_bar - mean_i h_i||, what ``resync_h_bar``
+    bounds); the fused mode has no dense gradients, so only the drift.
+    They consume no draws and feed nothing back: the state is bitwise
+    the ``diag=False`` state.  Iterate-compression and uncompressed
+    steps add none, as the reference's.
     """
     if tcfg.train_attn_chunk > 0:
         cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
     comp = tcfg.compression
     optimizer = make_optimizer(tcfg)
-    channel = make_channel(comp, HostMesh() if mesh is None else mesh)
+    channel = build_channel(comp, cfg, mesh, w)
     q, rule = (comp.make(learning_rate=tcfg.learning_rate) if comp.enabled
                else (None, None))
     iterate_rule = isinstance(rule, VRGDCI)
@@ -161,6 +225,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                 "rule 'vr_gdci' has no gradient message to fuse"
             )
         fused_vjp.check_fusible(rule)
+    grad_wire = build_transport(comp, cfg, channel, rule=rule, msg_codec=q,
+                                w=w)["grad"]
     loss_fn = worker_loss(cfg, rule, q) if fused else worker_loss(cfg)
 
     def train_step(state: TrainState, batch):
@@ -168,38 +234,81 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
         if fused:
             wbatch = with_fused_draws(wbatch, rule, q, state, w)
         grads, loss, metrics = per_worker_grads(loss_fn, state.params, wbatch)
+        extra = {}
         if not comp.enabled:
-            g_bar = channel.reduce_mean(state.noise, grads)
+            g_bar = grad_wire.reduce_mean(state.noise, grads)
             h, h_bar, bits = state.h, state.h_bar, state.bits
         elif iterate_rule:
             # Algorithm 2: the round mixes the iterate itself (in place)
-            params, h, h_bar, step_bits = rule.round(
-                state.noise, state.params, grads, state.h, state.h_bar,
-                channel)
+            params, h, h_bar, step_bits = grad_wire.iterate_round(
+                state.noise, state.params, grads, state.h, state.h_bar)
             state.noise.next_round()
             new_state = TrainState(params, state.opt, h, h_bar, state.noise,
                                    state.step + 1, state.bits + step_bits)
             return new_state, {**metrics, "loss": loss,
                                "bits": new_state.bits}
         else:
+            if diag and not fused:
+                # against the shifts BEFORE the round, which updates them
+                # in place
+                extra.update(residual_sq_diag(grads, state.h))
             if fused:   # ``grads`` are the decoded messages already
-                g_bar, h, h_bar, step_bits = channel.fused_round(
-                    rule, q, state.noise, grads, state.h, state.h_bar)
+                g_bar, h, h_bar, step_bits = grad_wire.fused_round(
+                    state.noise, grads, state.h, state.h_bar)
             else:
-                g_bar, h, h_bar, step_bits = rule.round(
-                    q, state.noise, grads, state.h, state.h_bar, channel)
+                g_bar, h, h_bar, step_bits = grad_wire.shift_round(
+                    state.noise, grads, state.h, state.h_bar)
             # bound the shift-tracking drift of lossy aggregation
             h_bar = resync_h_bar(h, h_bar, state.step,
                                  comp.drift_resync_every)
             bits = state.bits + step_bits
+            if diag:
+                if not fused:
+                    extra["ef_err_norm"] = _tree_dist(
+                        g_bar, _worker_mean_f32(grads))
+                if h is not None and h_bar is not None:
+                    extra["h_bar_drift"] = _tree_dist(h_bar,
+                                                      _worker_mean_f32(h))
         del grads
         params, opt = optimizer.update(g_bar, state.opt, state.params)
         state.noise.next_round()
         new_state = TrainState(params, opt, h, h_bar, state.noise,
                                state.step + 1, bits)
-        return new_state, {**metrics, "loss": loss, "bits": bits}
+        return new_state, {**metrics, "loss": loss, "bits": bits, **extra}
 
     return train_step
+
+
+def state_pspecs(state_shapes: TrainState, mesh, tcfg: TrainConfig
+                 ) -> TrainState:
+    """Partition specs of a ``TrainState`` (its leaves anything with
+    ``.shape``), validated against the mesh: params (FSDP per
+    ``tcfg.fsdp_params``), the AdamW moments (over ``data`` per
+    ``tcfg.zero_opt_state``), the worker-stacked shifts and the FSDP
+    master shift; the noise, step and bits replicated."""
+    def of(tree, fsdp):
+        return validate_pspecs(tree, params_pspecs(tree, fsdp=fsdp), mesh)
+
+    params = state_shapes.params
+    h_specs = hb_specs = None
+    if state_shapes.h is not None:
+        inner = params_pspecs(params, fsdp=False)
+        h_specs = validate_pspecs(
+            state_shapes.h,
+            {k: worker_stacked_pspec(mesh, sp) for k, sp in inner.items()},
+            mesh)
+        hb_specs = of(state_shapes.h_bar, True)
+    opt = OptState(step=PSpec(), m=of(state_shapes.opt.m, tcfg.zero_opt_state),
+                   v=of(state_shapes.opt.v, tcfg.zero_opt_state))
+    return TrainState(params=of(params, tcfg.fsdp_params), opt=opt,
+                      h=h_specs, h_bar=hb_specs, noise=PSpec(), step=PSpec(),
+                      bits=PSpec())
+
+
+def batch_pspecs(batch_shapes, mesh) -> dict:
+    """The batch's specs: its leading dim over the worker axes."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return {k: PSpec(axes) for k in batch_shapes}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -184,15 +184,36 @@ def test_contractive_classes():
 
 
 def test_make_compressor_registry():
+    """Every name of the reference's registry builds the reference's
+    class, with the same fields (the induced entries their two parts);
+    unknown names and unknown arguments raise as the reference's do."""
     assert isinstance(TC.make_compressor("natural"), TC.NaturalCompression)
     assert TC.make_compressor("topk", q=0.2) == TC.TopK(q=0.2)
     assert TC.make_compressor("randk", q=0.2) == TC.RandK(q=0.2)
     assert TC.make_compressor("sign") == TC.ScaledSign()
-    for name in ("bernoulli", "terngrad", "induced"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.make_compressor(name)
-    with pytest.raises(ValueError):
-        TC.make_compressor("nope")
+    assert TC.make_compressor("bernoulli", p=0.3) == TC.BernoulliP(p=0.3)
+    assert TC.make_compressor("terngrad") == TC.TernGrad()
+    assert TC.make_compressor("natural_dithering", s=4) == \
+        TC.NaturalDithering(s=4)
+    assert TC.make_compressor("induced_topk_randk", q=0.2) == TC.Induced(
+        c=TC.TopK(0.2), q=TC.RandK(0.2))
+    assert TC.make_compressor("induced_topk_natural") == TC.Induced(
+        c=TC.TopK(0.1), q=TC.NaturalCompression())
+    names = ("identity", "zero", "randk", "bernoulli", "natural_dithering",
+             "natural", "terngrad", "int8", "q8_block", "topk", "sign",
+             "induced", "induced_topk_randk", "induced_topk_natural")
+    for name in names:
+        got, want = TC.make_compressor(name), JC.make_compressor(name)
+        assert type(got).__name__ == type(want).__name__, name
+        if name.startswith("induced"):
+            assert (type(got.c).__name__, type(got.q).__name__) == (
+                type(want.c).__name__, type(want.q).__name__)
+    for bad in (("nope", {}), ("induced_topk_randk", {"p": 0.1}),
+                ("terngrad", {"q": 0.1})):
+        with pytest.raises((ValueError, TypeError)):
+            JC.make_compressor(bad[0], **bad[1])
+        with pytest.raises((ValueError, TypeError)):
+            TC.make_compressor(bad[0], **bad[1])
 
 
 def test_default_config_builds_as_reference():

@@ -346,12 +346,28 @@ def test_make_channel_builds_the_references_channel(mode):
 
 
 def test_async_channel_items_not_ported_raise():
-    for kw, item in (({"obs": object()}, "item 11"),
-                     ({"wspecs": {"a": None}}, "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            AsyncChannel(mesh=HostMesh(data=2), **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        AsyncChannel(mode="randk_shared")
+    """``obs`` (the StampRecorder) still raises, naming its item; since
+    item 5 was ported the channel takes ``wspecs`` and the
+    ``randk_shared`` mode, and its drained rounds are ``MeshChannel``'s
+    with them: each bucket reduces with the specs of its own leaves."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        AsyncChannel(mesh=HostMesh(data=2), obs=object())
+    from repro_torch.dist.sharding import PSpec
+
+    mesh = HostMesh(data=2, model=2)
+    g = _tree(1)
+    wspecs = {k: PSpec("data", *([None] * (v.dim() - 1))) for k, v in
+              g.items()}
+    wspecs["d"] = PSpec("data", None, "model")      # (W, 2, 700)
+    wspecs["f"] = PSpec("data", "model")            # (W, 300)
+    for mode in ("randk_shared", "q8_ring_fused", "q8_ring"):
+        channel = AsyncChannel(mode=mode, mesh=mesh, bucket_bytes=1024,
+                               wspecs=wspecs, randk_q=0.25)
+        assert len(channel._plan(g)) > 1
+        want = MeshChannel(mode=mode, mesh=mesh, wspecs=wspecs, randk_q=0.25)
+        for op in ("reduce_mean", "diana"):
+            for a, b in zip(_run(channel, op), _run(want, op)):
+                assert_bitwise(a, b, f"{mode} {op}")
 
 
 @pytest.mark.parametrize("mode", ["q8_ring_overlap", "efbv_overlap",

@@ -220,11 +220,10 @@ def test_three_ring_steps_track_dense():
                                   "q8_ring_overlap", "efbv_overlap",
                                   "q8_ring_fused_vjp"])
 def test_comm_modes_match_reference(mode):
-    """The comm-mode normalisation is the reference's; the ported modes
-    build a channel over the mesh in their aggregation format (ef21 and
-    efbv: dense; the overlap and fused-VJP modes: the q8 ring, through
-    the AsyncChannel), the modes not ported yet raise naming their
-    ROADMAP item."""
+    """The comm-mode normalisation is the reference's; every mode builds
+    a channel over the mesh in its aggregation format (ef21 and efbv:
+    dense; the overlap and fused-VJP modes: the q8 ring, through the
+    AsyncChannel; ``randk_shared`` with the config's keep fraction)."""
     from repro.comm.channel import aggregation_mode_of as jax_agg
     from repro.configs.base import CompressionConfig as JaxComp
     from repro_torch.comm.channel import aggregation_mode_of, make_channel
@@ -235,24 +234,43 @@ def test_comm_modes_match_reference(mode):
                                  ).aggregation_mode == JaxComp(
             comm_mode=mode, enabled=enabled).aggregation_mode
     mesh = HostMesh(data=2)
-    if mode in ("dense", "q8_ring", "q8_ring_fused", "ef21", "efbv",
-                "q8_ring_overlap", "efbv_overlap", "q8_ring_fused_vjp"):
+    if mode != "sim":
         ch = make_channel(mode, mesh)
         assert (ch.mode, ch.mesh) == (aggregation_mode_of(mode), mesh)
-    elif mode != "sim":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_channel(mode, mesh)
+    if mode == "randk_shared":
+        from repro.comm.channel import make_channel as jax_make
+
+        cfg = CompressionConfig(comm_mode=mode, randk_q=0.2)
+        assert make_channel(cfg, mesh).randk_q == jax_make(JaxComp(
+            comm_mode=mode, randk_q=0.2)).randk_q == 0.2
+        assert make_channel(mode, mesh, randk_q=0.3).randk_q == 0.3
 
 
 def test_ring_stages_not_ported_raise():
+    """The pod stage and the ``wspecs`` are ported (item 5): on a mesh
+    with a ``pod`` axis the channel runs the pod stage, the channel's
+    specs reach the ring, and worker rows that do not split over the
+    worker positions still raise.  (The stages' parity with the
+    reference: ``tests/test_torch_pod_ring.py``.)"""
+    from repro_torch.comm.wire import AddressedNoise
     from repro_torch.dist.collectives import q8_ring_tree_mean
+    from repro_torch.dist.sharding import PSpec
 
-    tree = {"a": torch.zeros((2, 8))}
-    for kw in ({"pod_axis": "pod"}, {"wspecs": {"a": None}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            q8_ring_tree_mean(None, tree, HostMesh(data=2), **kw)
+    tree = {"a": torch.ones((4, 8))}
+    for mesh, kw in ((HostMesh(data=2, pod=2), {"pod_axis": "pod"}),
+                     (HostMesh(data=2, model=2),
+                      {"wspecs": {"a": PSpec("data", "model")}})):
+        got = q8_ring_tree_mean(AddressedNoise(0, "cpu"), tree, mesh, **kw)
+        assert torch.equal(got["a"], torch.ones(8))   # ones quantize exactly
+        ch = MeshChannel(mode="q8_ring", mesh=mesh,
+                         wspecs=kw.get("wspecs"))
+        assert torch.equal(ch.reduce_mean(AddressedNoise(0, "cpu"),
+                                          tree)["a"], got["a"])
     with pytest.raises(ValueError):     # 3 worker rows over 2 positions
         q8_ring_tree_mean(None, {"a": torch.zeros((3, 8))}, HostMesh(data=2))
+    with pytest.raises(ValueError):     # 6 rows over 2 pods x 2 positions
+        q8_ring_tree_mean(None, {"a": torch.zeros((6, 8))},
+                          HostMesh(pod=2, data=2), pod_axis="pod")
 
 
 @pytest.mark.parametrize("mode", ["q8_ring", "q8_ring_fused"])
