@@ -24,6 +24,16 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    call, and through views that start off a 16-byte boundary, bitwise
    equal to fresh tensors; print their registers, shared memory and spills from the
    build's ptxas report; time them at the path's shape.
+3b. The q8 kernels at the layouts of the production layout and the MoE
+   path (``phase_moe_pod_layouts``): the chunk quantize (both ids) and the
+   accumulating dequant at every 2-position ring chunk of each
+   qwen2-moe-a2.7b leaf and of each ``model`` shard of each qwen3-0.6b
+   leaf, the quantize and dequant at each shard's pod-stage tiles, all
+   bitwise against the plain versions (the MoE leaf layouts themselves
+   are phase 3's); each timed with its bound at the largest expert leaf
+   (60 x 2048 x 1408) and its chunk, and at the largest and smallest
+   pod-layout tile and chunk (the ``at_moe_pod_layouts`` rows of the
+   ``kernels`` line).
 4. Cross-check, for qwen3-0.6b (DIANA + q8) in the ``dense`` and the
    ``q8_ring_fused`` mode and for rwkv6-3b in ``dense``: one step of
    the smoke config on the card (kernels) and on the CPU (plain
@@ -61,7 +71,13 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    ``efbv_overlap``), for the fused backward encode
    (``q8_ring_fused_vjp`` with DIANA), all three with the q8 codec over
    the 4-position ring, and for ``vr_gdci`` + ``randk`` (Algorithm 2:
-   the round mixes the params, AdamW is bypassed).
+   the round mixes the params, AdamW is bypassed).  And for
+   qwen2-moe-a2.7b in ``q8_ring_fused`` with both its wires q8 (the
+   wires' int8 payloads recorded on both sides and their flips counted:
+   a flipped activation carries through the rest of the step, so with
+   flips the shares of shifts and params beyond f32 noise are bounded
+   by RARE_WIRED, each element still within its lattice bound) and for
+   llava-next-34b (its vision prefix) dense.
 9. Three more full-size qwen3-0.6b paths, 3 steps each with the checks
    of 5: DIANA + ``natural`` + dense (the reference's default
    configuration), ``ef21`` + ``topk`` (q = 0.1) and ``rand_diana``
@@ -96,6 +112,23 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    (``BernoulliP``'s its fired messages, beside its expectation)
    (``phase_codecs``); and DIANA + ``natural_dithering`` (the paper's
    Fig. 1 ND) dense.
+9d. The MoE family at full width (``MOE_LAYERS`` of qwen2-moe-a2.7b's
+   24 layers: d_model 2048, 60 experts top-4 plus 4 shared, expert
+   d_ff 1408, vocab 151,936, capacity factor 1.25, group size 4096 --
+   1,192,890,368 params in 19 leaves), ``MOE_W`` workers over
+   ``HostMesh(data=MOE_W)``, ``q8_ring_fused``, DIANA + ``q8_block``
+   and both the moe and act wires q8, batch 8, seq 128 (512 tokens a
+   worker: one group, capacity 48): the checks of 5 at those workers;
+   each wire's bits a step (``Transport.per_wire_bits``) equal to the
+   count from the shapes (``wire_bits_from_shapes``) and to the sends
+   the steps made (counted); a breakdown step through the wires; one
+   more round held bitwise against its plain round
+   (``phase_plain_round``).
+9e. The dense 20-32B configs and the VLM at full width and
+   CONFIG_LAYERS layer (``phase_configs``): internlm2-20b, qwen1.5-32b,
+   qwen2.5-32b and llava-next-34b (seq 640: 576 prefix and 64 text
+   positions), one loss and backward each (finite), then 8 decode
+   ticks against the forward within DECODE_TOL.
 10. The entry points of the two kernels, ``shifted_natural(rand, g, h)``
    and ``block_topk(g, q=0.1)``, over all 13 full-size qwen3-0.6b
    leaves, with g worker 0's gradient of a fourth step of the natural
@@ -175,6 +208,11 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 W, BATCH, SEQ, STEPS, LR = 4, 8, 128, 3, 3e-4
 RING = 4                    # positions of the emulated data axis
 RWKV_LAYERS = 6             # rwkv6-3b's 32 layers cut to fit one 80 GB card
+MOE_LAYERS = 1              # qwen2-moe-a2.7b's 24 layers cut to fit one card
+MOE_W = 2                   # its workers (and ring positions): at 4 one
+                            # layer's state would not fit 80 GB
+CONFIG_LAYERS = 1           # the 20-34B configs' layers on the card
+CONFIG_BATCH, CONFIG_TICKS = 2, 8
 SLEEP_CYCLES = 1_000_000    # ~0.5 ms at the H100's clocks (time_ms)
 WKV_TOL = 1e-4              # rtol and atol of the WKV6 kernels vs plain
                             # (du: atol relative to its largest entry)
@@ -278,6 +316,30 @@ class HostNoise:
 
     def shared_permutation(self, *args):
         return self.source.shared_permutation(*args).to(self.device)
+
+    def send_uniform(self, *args):
+        return self.source.send_uniform(*args).to(self.device)
+
+    def send_permutation(self, *args):
+        return self.source.send_permutation(*args).to(self.device)
+
+    @property
+    def round(self):
+        return self.source.round
+
+    def stream(self, name):
+        """A wire's stream (the moe and act wires' sends), drawn on the
+        CPU too."""
+        return HostNoise.of(self.source.stream(name), self.device)
+
+    def at_round(self, r):
+        return HostNoise.of(self.source.at_round(r), self.device)
+
+    @classmethod
+    def of(cls, source, device):
+        out = cls.__new__(cls)
+        out.source, out.device = source, device
+        return out
 
     def next_round(self):
         self.source.next_round()
@@ -525,6 +587,148 @@ def phase_ring_kernels(cfg):
             "max_abs_err": err, "ms": t["chunk"],
             "plain_ms": t["chunk_plain"], "bound_ms": cb, "bound_by": cby,
             "library_ms": None}
+
+
+def _time_q8(K, plain, x, u, block):
+    """quantize and dequant (without and with an accumulator) of one
+    (rows, 128) layout: {name: (ms, plain ms, bound ms, bound by)}."""
+    qref, dref = plain
+    rows = x.shape[0]
+    n, nb = rows * 128, rows // block
+    acc = torch.randn_like(x)
+    q, s = K.q8_quantize_2d(x, u, block_rows=block)
+    out = {
+        "q8_quantize_2d": (
+            time_ms(lambda: K.q8_quantize_2d(x, u, block_rows=block)),
+            time_ms(lambda: qref(x, u, block=block)),
+            *bound_ms(9 * n + 4 * nb, 7 * n)),
+        "q8_dequant_add_2d": (
+            time_ms(lambda: K.q8_dequant_add_2d(q, s, None, block_rows=block)),
+            time_ms(lambda: dref(q, s, None, block=block)),
+            *bound_ms(5 * n + 4 * nb, n)),
+        "q8_dequant_add_2d acc": (
+            time_ms(lambda: K.q8_dequant_add_2d(q, s, acc, block_rows=block)),
+            time_ms(lambda: dref(q, s, acc, block=block)),
+            *bound_ms(9 * n + 4 * nb, 2 * n)),
+    }
+    del acc, q, s
+    return out
+
+
+def phase_moe_pod_layouts(moe, qwen):
+    """The q8 kernels at the layouts of the MoE path and of the pod
+    layout (phase 9c), bitwise against their plain versions: the chunk quantize (at
+    both chunk ids) and the accumulating dequant at every 2-position
+    ring chunk -- of each leaf of ``moe`` (``HostMesh(data=2)``) and of
+    each ``model`` shard of each qwen3-0.6b leaf (``HostMesh(pod=2,
+    data=2, model=2)``) -- and the quantize and the dequant (without and
+    with an accumulator) at each shard's pod-stage tiles (the MoE leaf
+    layouts are ``phase_kernels``').  Then each timed with its bound at
+    the largest expert leaf and its 2-position chunk, and at the largest
+    and the smallest pod-layout chunk and tile.  Returns ``{kernel name:
+    [{"at", "ms", "plain_ms", "bound_ms", "bound_by"}, ...]}``."""
+    from repro_torch.dist.sharding import worker_stacked_pspecs
+    from repro_torch.kernels.q8ring import kernel as K
+    from repro_torch.kernels.q8ring.ops import q8_layout, ring_chunk_layout
+    from repro_torch.kernels.q8ring.ref import (q8_dequant_add_ref,
+                                                q8_quantize_chunk_ref,
+                                                q8_quantize_ref)
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.train import params_like
+    from repro_torch.models.model import param_specs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pod = HostMesh(pod=2, data=2, model=2, device=dev)
+    like = params_like(qwen)
+    shard_d = []
+    for k, spec in worker_stacked_pspecs(pod, like, W).items():
+        d = math.prod(like[k].shape)
+        shard_d.append(d // 2 if any(a is not None for a in spec[1:]) else d)
+    moe_d = {path: math.prod(shape) for path, shape, _ in param_specs(moe)}
+    chunks = sorted({ring_chunk_layout(d, 2)
+                     for d in list(moe_d.values()) + shard_d}, reverse=True)
+    tiles = sorted({(q8_layout(d)[2], q8_layout(d)[1]) for d in shard_d},
+                   reverse=True)
+    ids = torch.arange(2, dtype=torch.int32, device=dev)
+    for rows, block in chunks:
+        c = torch.randn((2, rows, 128), generator=gen, device=dev) * 0.02
+        c[0, :block] = 0.0                      # one all-zero tile
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        acc = torch.randn((rows, 128), generator=gen, device=dev)
+        for cid in range(2):
+            q, sc = K.q8_quantize_chunk_3d(c, u, ids[cid:cid + 1],
+                                           block_rows=block)
+            qr, sr = q8_quantize_chunk_ref(c, u, cid, block=block)
+            out = K.q8_dequant_add_2d(q, sc, acc, block_rows=block)
+            ref = q8_dequant_add_ref(q, sc, acc, block=block)
+            torch.cuda.synchronize()
+            check(torch.equal(q, qr) and torch.equal(bits_of(sc),
+                                                     bits_of(sr))
+                  and torch.equal(bits_of(out), bits_of(ref)),
+                  f"a q8 ring kernel differs from its plain version at the "
+                  f"2-position chunk (2, {rows}, 128) block {block} id {cid}")
+        del c, u, acc, q, sc, qr, sr, out, ref
+    for rows, block in tiles:
+        x = torch.randn((rows, 128), generator=gen, device=dev) * 0.02
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        q, sc = K.q8_quantize_2d(x, u, block_rows=block)
+        qr, sr = q8_quantize_ref(x, u, block=block)
+        check(torch.equal(q, qr) and torch.equal(bits_of(sc), bits_of(sr)),
+              f"q8_quantize_2d differs from plain at the pod tile ({rows}, "
+              f"128) block {block}")
+        for a in (None, torch.randn_like(x)):
+            check(torch.equal(bits_of(K.q8_dequant_add_2d(
+                q, sc, a, block_rows=block)), bits_of(q8_dequant_add_ref(
+                    q, sc, a, block=block))),
+                f"q8_dequant_add_2d differs from plain at the pod tile "
+                f"({rows}, 128) block {block}")
+        del x, u, q, sc, qr, sr
+    log(f"moe/pod layouts: the q8 kernels bitwise equal to plain at "
+        f"{len(chunks)} 2-position ring chunk layouts (both ids) and "
+        f"{len(tiles)} pod-stage tile layouts")
+
+    out = {"q8_quantize_2d": [], "q8_dequant_add_2d": [],
+           "q8_quantize_chunk_3d": []}
+
+    def row(name, at, t):
+        ms, plain_ms, b, by = t
+        if name.endswith(" acc"):
+            at += ", with an accumulator"
+        rec = {"at": at, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+               "bound_by": by}
+        out[name.split(" ")[0]].append(rec)
+        log(f"moe/pod layouts: {name} at {at}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, bound {b:.4f} by {by}, {b / ms:.0%} of it)")
+
+    expert = max((d, p) for p, d in moe_d.items() if "/moe/w_" in p)
+    plain = (q8_quantize_ref, q8_dequant_add_ref)
+    for what, d in ((f"the expert leaf {expert[1]} ({expert[0]:,})",
+                     expert[0]),
+                    ("the largest pod tile", max(shard_d)),
+                    ("the smallest pod tile", min(shard_d))):
+        _, block, rows = q8_layout(d)
+        x = torch.randn((rows, 128), generator=gen, device=dev) * 0.02
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        for name, t in _time_q8(K, plain, x, u, block).items():
+            row(name, f"{what}, ({rows}, 128) block {block}", t)
+        del x, u
+    for what, d in ((f"the expert leaf's 2-position chunk", expert[0]),
+                    ("the largest pod chunk", max(shard_d)),
+                    ("the smallest pod chunk", min(shard_d))):
+        rows, block = ring_chunk_layout(d, 2)
+        n, nb = rows * 128, rows // block
+        c = torch.randn((2, rows, 128), generator=gen, device=dev) * 0.02
+        u = torch.rand((rows, 128), generator=gen, device=dev)
+        t = (time_ms(lambda: K.q8_quantize_chunk_3d(c, u, ids[1:2],
+                                                    block_rows=block)),
+             time_ms(lambda: q8_quantize_chunk_ref(c, u, 1, block=block)),
+             *bound_ms(9 * n + 4 * nb + 4, 7 * n))
+        row("q8_quantize_chunk_3d", f"{what}, (2, {rows}, 128) block "
+                                    f"{block}", t)
+        del c, u
+    torch.cuda.empty_cache()
+    return out
 
 
 def wkv6_inputs(gen, bh, t, dk, dv):
@@ -1125,16 +1329,18 @@ def phase_entry_points(g0, h0):
     return launches
 
 
-def _slice_configs(cfg, comm_mode="dense", codec="q8_block", rule="diana"):
+def _slice_configs(cfg, comm_mode="dense", codec="q8_block", rule="diana",
+                   wires=("none", "none")):
     """``rule`` (or the comm mode's own rule: ``ef21``) with ``codec``;
     top-k keeps TOPK_Q, randk its default q = 0.1, Rand-DIANA the
-    config's p = 0.05."""
+    config's p = 0.05; ``wires`` the moe and act wires' codec flags."""
     from repro_torch.configs.base import CompressionConfig, TrainConfig
 
     comp = CompressionConfig(
         enabled=True, compressor=codec,
         compressor_kwargs=(("q", TOPK_Q),) if codec == "topk" else (),
-        shift_rule=rule, comm_mode=comm_mode)
+        shift_rule=rule, comm_mode=comm_mode, moe_wire=wires[0],
+        act_wire=wires[1])
     return TrainConfig(learning_rate=LR, total_steps=STEPS,
                        warmup_steps=1, compression=comp)
 
@@ -1203,7 +1409,8 @@ def ring_tile_max(step, n, block_rows=64):
             .reshape(step.shape))
 
 
-def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
+def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
+                      wires=("none", "none")):
     """One smoke-config step on the card and on the CPU, same state and
     uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
 
@@ -1239,18 +1446,34 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
     draws its coordinates from the same stream on both sides, so its
     messages flip nothing: shifts within f32 noise.  With ``vr_gdci``
     the round mixes the params itself (VR-GDCI's alpha integrates the
-    messages into the shifts)."""
+    messages into the shifts).  ``wires``: the moe and act wires' codec
+    flags; their sends draw on the CPU by address too, so both sides
+    send the same bits but where the activations they quantize differ
+    by f32 rounding across a rounding boundary.  Such a wire flip moves
+    one activation by a whole int8 step, which the rest of that worker's
+    forward and backward carry: its gradients then differ far beyond f32
+    noise wherever the token reaches, and their q8 messages flip at a
+    share of the elements no longer rare (on the CPU, one side's params
+    perturbed by 1e-7 flipped 16 of 393,216 wire elements, then 0.75% of
+    the h elements and 1.05% of h_bar's through the ring; chip run 1:
+    0.19% of h).  So the wires' int8 payloads are recorded on both sides
+    and their flips counted; with none the bounds above hold, with some
+    the shifts' and params' shares are RARE_WIRED, every element still
+    within its lattice bound."""
+    from repro_torch.comm import channel as CH
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
-    TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
+    TIGHT, RARE, RARE_RING, RARE_WIRED = 1e-5, 1e-4, 1e-3, 5e-2
     ring = ring_mode(comm_mode)
     cfg = get_smoke_config(arch).with_(dtype="float32")
-    tcfg = _slice_configs(cfg, comm_mode, codec, rule)
+    tcfg = _slice_configs(cfg, comm_mode, codec, rule, wires)
     alpha = shift_rate(tcfg.compression)
-    what = f"cross-check {arch} {comm_mode} {codec} {rule}"
+    what = f"cross-check {arch} {comm_mode} {codec} {rule}" + (
+        "" if wires == ("none", "none") else
+        f" moe_wire={wires[0]} act_wire={wires[1]}")
     block_rows = tcfg.compression.q8_block_rows
     ring_growth = (2 * RING + 1) / (1 - (RING - 1) / 127)
     batch = TokenStream(cfg, 32, BATCH).batch(0)
@@ -1259,7 +1482,8 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
     def on(tree, dev):   # a copy: h and h_bar are updated in place
         return {k: v.to(dev, copy=True) for k, v in tree.items()}
 
-    results = {}
+    results, sent = [], []
+    encode = CH.encode_meta_free
     for dev in ("cpu", "cuda"):
         state = s0._replace(
             params=on(s0.params, dev),
@@ -1267,10 +1491,26 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
             h=on(s0.h, dev), h_bar=on(s0.h_bar, dev),
             noise=HostNoise(1, dev))
         mesh = HostMesh(data=RING if ring else 1, device=dev)
-        state, m = build_train_step(cfg, tcfg, W, mesh)(
-            state, {k: v.to(dev) for k, v in batch.items()})
-        results[dev] = (state, m)
-    (sc, mc), (sg, mg) = results["cpu"], results["cuda"]
+        sent.append([])
+
+        def recorded(codec, rand, x, _sent=sent[-1]):   # the wires' sends
+            payload = encode(codec, rand, x)
+            _sent.append(payload["q"].cpu())
+            return payload
+
+        CH.encode_meta_free = recorded
+        try:
+            state, m = build_train_step(cfg, tcfg, W, mesh)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+        finally:
+            CH.encode_meta_free = encode
+        results.append((state, m))
+    check(len(sent[0]) == len(sent[1]),
+          f"{what}: the sides sent {len(sent[0])} and {len(sent[1])} wire "
+          f"payloads")
+    wire_flips = sum(int((a != b).sum()) for a, b in zip(*sent))
+    wire_elems = sum(a.numel() for a in sent[0])
+    (sc, mc), (sg, mg) = results
     check(mg["bits"].item() == mc["bits"].item(),
           f"{what}: bits differ")
     lc, lg = mc["loss"].item(), mg["loss"].item()
@@ -1300,6 +1540,8 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
             flipped += int((d > noise).sum())
             total += d.numel()
         share = RARE_RING if ring and name == "h_bar" else RARE
+        if wire_flips:
+            share = RARE_WIRED
         check(flipped <= share * total,
               f"{what}: {flipped} of {total} "
               f"{name} elements flipped")
@@ -1313,7 +1555,7 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
         total += d.numel()
     check(worst <= 2 * LR, f"{what}: params differ "
                            f"by {worst}")
-    check(off <= 1e-3 * total,
+    check(off <= (RARE_WIRED if wire_flips else 1e-3) * total,
           f"{what}: {off} of {total} params beyond "
           f"f32 noise")
     log(f"{what} (smoke config, 1 step, GPU vs CPU): "
@@ -1322,14 +1564,16 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana"):
         f"{counts['h_bar'][0]} of {counts['h_bar'][1]}; largest |diff| / "
         f"bound: h {worst_share['h']:.3f}, h_bar {worst_share['h_bar']:.3f}"
         f"; params beyond f32 "
-        f"noise {off} of {total}, max |diff| {worst:.3e}")
+        f"noise {off} of {total}, max |diff| {worst:.3e}"
+        + (f"; wire int8 payloads flipped {wire_flips} of {wire_elems} "
+           f"({len(sent[0])} sends)" if sent[0] else ""))
 
 
 RANDK_Q = 0.1               # keep fraction of the randk codec (its default)
 
 
 def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
-                    reverse=False):
+                    reverse=False, w=W):
     """The f32 bit counter the step must report, from leaf shapes alone:
     per leaf and worker, q8 the int8 lanes block and one f32 scale per
     tile; natural 9 bits an element (8-bit exponent, 1-bit sign); natural
@@ -1349,15 +1593,15 @@ def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
         d = math.prod(shape)
         dense += 32 * d
         if codec == "natural":
-            leaf = W * 9 * d
+            leaf = w * 9 * d
         elif codec == "natural_dithering":   # 4-bit code, 1-bit sign, norm
-            leaf = W * (5 * d + 32)
+            leaf = w * (5 * d + 32)
         elif codec in ("topk", "randk"):
             k = max(1, round((TOPK_Q if codec == "topk" else RANDK_Q) * d))
-            leaf = W * k * (32 + math.ceil(math.log2(max(d, 2))))
+            leaf = w * k * (32 + math.ceil(math.log2(max(d, 2))))
         else:
             _, block, rows_pad = q8_layout(d)
-            leaf = W * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
+            leaf = w * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
         step_bits = np.float32(step_bits + np.float32(leaf))
     total = np.float32(0)
     for i in range(steps):
@@ -1392,6 +1636,13 @@ class RefreshCount:
     def aux_uniform(self, shape):
         self.aux.append(self.source.aux_uniform(shape))
         return self.aux[-1]
+
+    @property
+    def round(self):
+        return self.source.round
+
+    def stream(self, name):
+        return self.source.stream(name)
 
     def next_round(self):
         self.source.next_round()
@@ -1445,7 +1696,7 @@ def reset_launches():
     return wrappers
 
 
-def ring_counts(cfg, mesh):
+def ring_counts(cfg, mesh, w=W):
     """Per step, from the channel's specs (``build_channel``): the rings
     the aggregation runs (one per pod and per ``model`` shard of a leaf;
     a leaf replicated over ``model`` is reduced once) and the pod stage's
@@ -1454,12 +1705,44 @@ def ring_counts(cfg, mesh):
     from repro_torch.launch.train import params_like
 
     rings = stage = 0
-    for spec in worker_stacked_pspecs(mesh, params_like(cfg), W).values():
+    for spec in worker_stacked_pspecs(mesh, params_like(cfg), w).values():
         sharded = mesh.model > 1 and any(a is not None for a in spec[1:])
         shards = mesh.model if sharded else 1
         rings += mesh.pods * shards
         stage += mesh.pods * shards if mesh.pods > 1 else 0
     return rings, stage
+
+
+def wire_bits_from_shapes(cfg, w, wires):
+    """Each wire's bits a step from the shapes alone, with the q8 codecs:
+    the grad wire's q8_block messages (``structural_bits``' count of one
+    step, summed exactly); the moe wire two sends a token group (dispatch
+    and combine) of the (E, C, D) expert buffer, C GShard's capacity
+    (``capacity_factor`` x group x k / E, up to a multiple of 8), per MoE
+    layer and worker; the act wire one (tokens, D) send a layer and
+    worker; an ``Int8Stochastic`` send 8 bits an element and one f32
+    scale."""
+    from repro_torch.kernels.q8ring.ops import q8_layout
+    from repro_torch.models.model import param_specs
+
+    check(set(wires) <= {"none", "q8"}, f"wires {wires}: q8 or none")
+    tokens = (BATCH // w) * SEQ
+    grad = 0
+    for _, shape, _ in param_specs(cfg):
+        _, block, rows_pad = q8_layout(math.prod(shape))
+        grad += w * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
+    out = {"grad": float(grad)}
+    if wires[0] == "q8":
+        g = min(cfg.moe_group_size, tokens)
+        c = math.ceil(cfg.capacity_factor * g * cfg.experts_per_token
+                      / cfg.n_experts)
+        c = max(8, -(-c // 8) * 8)
+        sends = 2 * -(-tokens // g) * (cfg.n_layers - cfg.first_dense_layers)
+        out["moe"] = float(sends * w * (8 * cfg.n_experts * c * cfg.d_model
+                                        + 32))
+    if wires[1] == "q8":
+        out["act"] = float(cfg.n_layers * w * (8 * tokens * cfg.d_model + 32))
+    return out
 
 
 def mesh_name(mesh_kw):
@@ -1469,7 +1752,8 @@ def mesh_name(mesh_kw):
 
 def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
                     rule="diana", digest=False, breakdown=True,
-                    mesh_kw=None, diag=False, plain_round=False):
+                    mesh_kw=None, diag=False, plain_round=False, w=W,
+                    wires=("none", "none")):
     """3 steps of ``cfg`` in ``comm_mode`` with ``codec`` and ``rule``:
     ``dense``, ``ef21`` or ``randk_shared``, or a ring mode
     (``q8_ring_fused``, the overlap modes ``q8_ring_overlap``/
@@ -1482,7 +1766,14 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     phase's inputs), else None.  ``breakdown``: time a fourth step phase
     by phase.  ``diag``: the step's diagnostics on, logged a step.
     ``plain_round``: one more round run with the kernels and again with
-    their plain versions, bitwise equal (``phase_plain_round``)."""
+    their plain versions, bitwise equal (``phase_plain_round``).  ``w``:
+    the workers.  ``wires``: the moe and act wires' codec flags; with
+    either set, every send of the steps is counted, and each wire's
+    bits a step -- the transport's structural count -- must equal the
+    count recomputed from the shapes (``wire_bits_from_shapes``) and
+    the sends the steps made."""
+    from repro_torch.comm import transport as TR
+    from repro_torch.comm.channel import SimChannel
     from repro_torch.comm.channel import FUSED_VJP_MODES, OVERLAP_MODES
     from repro_torch.comm.overlap import plan_buckets
     from repro_torch.core.compressors import ShapeDtype
@@ -1494,7 +1785,8 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
 
     ring = ring_mode(comm_mode)
     async_mode = comm_mode in OVERLAP_MODES + FUSED_VJP_MODES
-    tcfg = _slice_configs(cfg, comm_mode, codec, rule)
+    tcfg = _slice_configs(cfg, comm_mode, codec, rule, wires)
+    wired = wires != ("none", "none")
     mesh = HostMesh(**(mesh_kw or {"data": RING if ring else 1}),
                     device="cuda")
     n = mesh.data
@@ -1509,9 +1801,9 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     # reference's are: no kernel.  Counted before the run, from the code's
     # specs and layouts
     leaves = len(param_specs(cfg))
-    rings, stage = ring_counts(cfg, mesh) if ring else (0, 0)
-    msgs = leaves * W * STEPS if codec == "q8_block" else 0
-    wkv = cfg.n_layers * W * STEPS if cfg.arch_type == "ssm" else 0
+    rings, stage = ring_counts(cfg, mesh, w) if ring else (0, 0)
+    msgs = leaves * w * STEPS if codec == "q8_block" else 0
+    wkv = cfg.n_layers * w * STEPS if cfg.arch_type == "ssm" else 0
     expect = {"q8_quantize_2d": msgs + stage * STEPS,
               "q8_quantize_chunk_3d": rings * n * n * STEPS,
               "q8_dequant_add_2d": msgs + (rings * n * n + stage) * STEPS,
@@ -1520,31 +1812,42 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     expect_acc = rings * n * (n - 1) * STEPS
     what = f"main path {cfg.name} {comm_mode} {codec}" + (
         "" if rule == "diana" else f" {rule}") + mesh_name(mesh_kw) + (
-        " diag" if diag else "")
-    if mesh_kw:
+        " diag" if diag else "") + ("" if not wired else
+                                   f" moe_wire={wires[0]} act_wire={wires[1]}")
+    if mesh_kw or wired:
         log(f"{what}: expected launches {expect} (accumulating dequant "
             f"{expect_acc}): {rings} rings of {n} positions and {stage} pod "
             f"stage encodes a step")
 
     torch.cuda.reset_peak_memory_stats()
-    state = init_state(0, cfg, tcfg, W)            # on the CUDA device
+    state = init_state(0, cfg, tcfg, w)            # on the CUDA device
     counter = RefreshCount(state.noise)
     state = state._replace(noise=counter)
-    step = build_train_step(cfg, tcfg, W, mesh, diag=diag)
+    step = build_train_step(cfg, tcfg, w, mesh, diag=diag)
     stream = TokenStream(cfg, SEQ, BATCH)
     batches = [stream.batch(i, "cuda") for i in range(STEPS + 1)]
     torch.cuda.synchronize()
 
+    sends, send = [], TR.Wire.send
+
+    def counted_send(self, draw, x, e=None):     # the wires' live sends
+        sends.append((self.name, tuple(x.shape)))
+        return send(self, draw, x, e)
+
     wrappers = reset_launches()
     step_s, losses, diags = [], [], []
-    for i in range(STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batches[i])
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"].item())
-        if diag:
-            diags.append({k: metrics[k].item() for k in DIAG})
+    TR.Wire.send = counted_send
+    try:
+        for i in range(STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches[i])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            if diag:
+                diags.append({k: metrics[k].item() for k in DIAG})
+    finally:
+        TR.Wire.send = send
     launches = {name: fn.launches for name, fn in wrappers.items()}
     acc_launches = K.q8_dequant_add_2d.acc_launches
     peak = torch.cuda.max_memory_allocated()
@@ -1556,9 +1859,31 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     if rule == "rand_diana":
         p = tcfg.compression.shift_p
         refreshes = [int((u < p).sum()) for u in counter.aux[:STEPS]]
-    want = structural_bits(cfg, STEPS, codec, refreshes, reverse=async_mode)
+    want = structural_bits(cfg, STEPS, codec, refreshes, reverse=async_mode,
+                           w=w)
     check(metrics["bits"].item() == want,
           f"bits {metrics['bits'].item()} != structural {want}")
+    check(not sends or wired, f"{what}: wires sent without being set")
+    if wired:
+        from repro_torch.launch.train import params_like
+
+        acct = TR.build_transport(
+            tcfg.compression, cfg, SimChannel(), w=w,
+            params_like=params_like(cfg),
+            tokens_per_worker=(BATCH // w) * SEQ).per_wire_bits()
+        derived = wire_bits_from_shapes(cfg, w, wires)
+        live = {}
+        for name, shape in sends:     # an int8 block and one f32 scale
+            live[name] = live.get(name, 0) + (8 * math.prod(shape) + 32)
+        live = {k: v / STEPS for k, v in live.items()}
+        check(acct == derived,
+              f"{what}: the transport's bits a step {acct} differ from "
+              f"those derived from the shapes {derived}")
+        check(live == {k: v for k, v in derived.items() if k != "grad"},
+              f"{what}: the steps' sends carried {live} bits a step, the "
+              f"transport declares {acct}")
+        log(f"{what}: bits a step by wire {acct} = the count from the "
+            f"shapes = the live sends' ({len(sends) // STEPS} sends a step)")
     check(launches == expect, f"{what}: launches {launches}, expected "
                               f"{expect}")
     check(acc_launches == expect_acc,
@@ -1569,7 +1894,7 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
               f"{what}: diagnostics {d}")
     plan = ""
     if async_mode:
-        like = {k: ShapeDtype((W, *v.shape), v.dtype, v.device)
+        like = {k: ShapeDtype((w, *v.shape), v.dtype, v.device)
                 for k, v in state.params.items()}
         budget = tcfg.compression.overlap_bucket_bytes
         per_leaf = comm_mode in FUSED_VJP_MODES
@@ -1577,7 +1902,7 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
                 f" ({'one per leaf' if per_leaf else f'{budget} B budget'})")
     log(f"{what}: {cfg.n_layers} layers, "
         f"{sum(p.numel() for p in state.params.values()):,} params, "
-        f"{leaves} leaves, w={W}, mesh {mesh.shape}, batch {BATCH}, seq "
+        f"{leaves} leaves, w={w}, mesh {mesh.shape}, batch {BATCH}, seq "
         f"{SEQ}{plan}")
     log(f"{what}: losses {losses}; bits {metrics['bits'].item():.0f} "
         f"(structural" + (", summed in bucket order" if async_mode else "")
@@ -1597,10 +1922,11 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
         log(f"{what}: digests of {len(digests)} leaves (params, h, h_bar) "
             f"in {time.perf_counter() - t0:.1f} s")
     h0 = {k: h[0].clone() for k, h in state.h.items()} if keep else None
-    g0 = (phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep)
+    g0 = (phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep, w)
           if breakdown else None)
-    if plain_round:
-        phase_plain_round(cfg, tcfg, state, batches[STEPS], mesh, what)
+    if plain_round:   # the round takes the state's only reference
+        box, state, metrics = [state], None, None
+        phase_plain_round(cfg, tcfg, box, batches[STEPS], mesh, what, w)
     return launches, digests, (g0, h0) if keep else None
 
 
@@ -1631,14 +1957,16 @@ def plain_q8():
                                                   dequant)]
 
 
-def phase_plain_round(cfg, tcfg, state, batch, mesh, what):
+def phase_plain_round(cfg, tcfg, box, batch, mesh, what, w=W):
     """One more round of the path (gradients of ``batch``, the round's
     noise at the next round) run twice from the same shifts: with the
     kernels, and with their plain versions in their place (``plain_q8``)
     -- the chunk quantize and the dequant at every per-shard ring chunk,
     the quantize and dequant at every pod-stage shard.  ``g_bar``, ``h``
-    and ``h_bar`` bitwise equal.  The optimizer state is dropped first to
-    make room."""
+    and ``h_bar`` bitwise equal.  ``box`` is a list holding the state,
+    its only reference: the state is taken out of it, and the params and
+    the optimizer state are dropped once the gradients are computed, and
+    the kernel round's results wait on the host, to make room."""
     from repro_torch.dist.worker_grads import per_worker_grads, split_batch
     from repro_torch.kernels.q8ring import kernel as K
     from repro_torch.launch.train import build_channel, worker_loss
@@ -1646,9 +1974,10 @@ def phase_plain_round(cfg, tcfg, state, batch, mesh, what):
     cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
     comp = tcfg.compression
     q, rule = comp.make()
-    channel = build_channel(comp, cfg, mesh, W)
+    channel = build_channel(comp, cfg, mesh, w)
+    state = box.pop()
     grads = per_worker_grads(worker_loss(cfg), state.params,
-                             split_batch(batch, W))[0]
+                             split_batch(batch, w))[0]
     h, h_bar, noise = state.h, state.h_bar, state.noise
     state = None
     gc.collect()
@@ -1673,10 +2002,15 @@ def phase_plain_round(cfg, tcfg, state, batch, mesh, what):
         check((K.q8_quantize_chunk_3d.launches == before) == plain,
               f"{what}: the plain round launched a kernel, or the kernel "
               f"round none")
+        if not plain:
+            g_bar, h1, hb1 = ({k: v.cpu() for k, v in t.items()}
+                              for t in (g_bar, h1, hb1))
         outs.append((g_bar, h1, hb1, secs))
         g_bar = h1 = hb1 = None
+        torch.cuda.empty_cache()
     for name, a, b in zip(("g_bar", "h", "h_bar"), outs[0], outs[1]):
-        off = [k for k in a if not torch.equal(bits_of(a[k]), bits_of(b[k]))]
+        off = [k for k in a
+               if not torch.equal(bits_of(a[k]), bits_of(b[k].cpu()))]
         check(not off, f"{what}: the kernel round's {name} differs from the "
                        f"plain round's at {off[:4]}")
     log(f"{what}: one round with the kernels ({outs[0][3]:.3f} s) bitwise "
@@ -1686,7 +2020,7 @@ def phase_plain_round(cfg, tcfg, state, batch, mesh, what):
     torch.cuda.empty_cache()
 
 
-def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
+def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False, w=W):
     """Device time of each phase of one more step, run piece by piece:
     gradients, the round's messages, its aggregation, its apply, AdamW.
     In the overlap and fused-VJP modes the aggregation is the bucketed
@@ -1695,9 +2029,12 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
     which shows how much of the aggregation the side stream hid.  In the
     fused-VJP mode the gradients are timed plain and tapped (the encode
     inside the backward pass), and the messages are the tapped ones.
-    With ``keep``, returns worker 0's gradients of that step."""
+    With the moe or act wire set, the gradients run through the wires,
+    as the step's do.  With ``keep``, returns worker 0's gradients of
+    that step."""
     from repro_torch.comm.channel import FUSED_VJP_MODES
     from repro_torch.comm.overlap import AsyncChannel
+    from repro_torch.comm.transport import WorkerWireNoise, build_transport
     from repro_torch.dist.worker_grads import per_worker_grads, split_batch
     from repro_torch.launch.train import (build_channel, with_fused_draws,
                                           worker_loss)
@@ -1706,9 +2043,11 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
     cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
     comp = tcfg.compression
     q, rule = comp.make()
-    channel = build_channel(comp, cfg, mesh, W)
+    channel = build_channel(comp, cfg, mesh, w)
     optimizer = make_optimizer(tcfg)
     fused = comp.comm_mode in FUSED_VJP_MODES
+    transport = build_transport(comp, cfg, channel, w=w)
+    wires = transport if "moe" in transport or "act" in transport else None
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1718,14 +2057,18 @@ def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False):
         return out, time.perf_counter() - t0
 
     t, whole = {}, {}
-    wbatch = split_batch(batch, W)
+    wbatch = split_batch(batch, w)
+    if wires is not None:     # the step's moe / act wire sends, as it ran them
+        wbatch["wire_noise"] = [WorkerWireNoise(state.noise, j)
+                                for j in range(w)]
 
     def grads_of(tapped):
         if tapped:
             return per_worker_grads(
-                worker_loss(cfg, rule, q), state.params,
-                with_fused_draws(wbatch, rule, q, state, W))[0]
-        return per_worker_grads(worker_loss(cfg), state.params, wbatch)[0]
+                worker_loss(cfg, rule, q, wires), state.params,
+                with_fused_draws(wbatch, rule, q, state, w))[0]
+        return per_worker_grads(worker_loss(cfg, wires=wires), state.params,
+                                wbatch)[0]
 
     if fused:
         # tapped and plain in turns (tapped, plain, plain, tapped): the
@@ -1993,6 +2336,60 @@ def live_publish_bits(codec, cfg):
         like = ShapeDtype(shape, torch.float32, torch.device("meta"))
         bits = bits + f32_bits(codec.wire_bits(codec.payload_like(like)))
     return bits.item()
+
+
+def phase_configs():
+    """The dense 20-32B configs and the VLM at full width, cut to
+    CONFIG_LAYERS layer: internlm2-20b, qwen1.5-32b, qwen2.5-32b (seq
+    SEQ) and llava-next-34b (seq 640: its 576 prefix positions and 64
+    text positions), batch CONFIG_BATCH, random params from seed 0.  Per
+    config one loss and backward, no optimizer state: loss and every
+    gradient finite; then CONFIG_TICKS teacher-forced decode ticks,
+    their logits against the forward's within DECODE_TOL (the VLM's
+    forward with an empty prefix: it decodes as the dense family)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import model as M
+
+    for arch, seq in (("internlm2-20b", SEQ), ("qwen1.5-32b", SEQ),
+                      ("qwen2.5-32b", SEQ), ("llava-next-34b", 640)):
+        cfg = get_config(arch).with_(dtype="float32", n_layers=CONFIG_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(cfg, generator=gen, device="cuda")
+        batch = TokenStream(cfg, seq, CONFIG_BATCH).batch(0, "cuda")
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, _ = M.train_loss(leaves, cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lv = loss.item()
+        check(math.isfinite(lv), f"config {arch}: loss {lv}")
+        bad = [k for k, g in zip(leaves, grads) if not torch.isfinite(g).all()]
+        check(not bad, f"config {arch}: gradients not finite at {bad[:4]}")
+        peak = torch.cuda.max_memory_allocated()
+        del grads, leaves, loss
+        params = {k: v.detach() for k, v in params.items()}
+        text = batch["tokens"][:, :CONFIG_TICKS]
+        fwd = None
+        if cfg.modality == "vision_prefix":
+            with torch.no_grad():
+                fwd = M.forward_train(params, cfg, {
+                    "tokens": text, "prefix": torch.zeros(
+                        (CONFIG_BATCH, 0, cfg.d_model), device="cuda")})[0]
+        check_decode_against_forward(f"config {arch}", cfg, params, text, fwd)
+        log(f"config {arch} (full width, {cfg.n_layers} layer, "
+            f"{sum(p.numel() for p in params.values()):,} params, batch "
+            f"{CONFIG_BATCH}, seq {seq}, tokens {tuple(batch['tokens'].shape)}"
+            f"{', prefix ' + str(tuple(batch['prefix'].shape)) if 'prefix' in batch else ''}): "
+            f"loss {lv:.4f}, "
+            f"gradients finite; init {t1 - t0:.2f} s, loss and backward "
+            f"{t2 - t1:.3f} s; peak {peak / 2**30:.2f} GiB")
+        del params, batch, fwd
+        torch.cuda.empty_cache()
 
 
 def phase_serve(qwen, rwkv):
@@ -2531,9 +2928,14 @@ def main(argv=None):
 
     qwen = get_config("qwen3-0.6b").with_(dtype="float32")
     rwkv = get_config("rwkv6-3b").with_(dtype="float32", n_layers=RWKV_LAYERS)
+    moe = get_config("qwen2-moe-a2.7b").with_(dtype="float32",
+                                              n_layers=MOE_LAYERS)
     phase_build()
-    kernels = (phase_kernels(qwen, also=(rwkv,)) + [phase_ring_kernels(qwen)]
+    kernels = (phase_kernels(qwen, also=(rwkv, moe))
+               + [phase_ring_kernels(qwen)]
                + phase_wkv6_kernels(rwkv) + phase_natural_topk_kernels(qwen))
+    for k, rows in phase_moe_pod_layouts(moe, qwen).items():
+        next(r for r in kernels if r["name"] == k)["at_moe_pod_layouts"] = rows
     paths = [(qwen, "dense", "q8_block", "diana"),
              (qwen, "q8_ring_fused", "q8_block", "diana"),
              (rwkv, "dense", "q8_block", "diana"),
@@ -2550,6 +2952,8 @@ def main(argv=None):
     for cfg, mode, codec, rule in (paths[:5] + overlap_paths
                                    + [(qwen, "dense", "randk", "vr_gdci")]):
         phase_cross_check(cfg.name, mode, codec, rule)
+    phase_cross_check(moe.name, "q8_ring_fused", wires=("q8", "q8"))
+    phase_cross_check("llava-next-34b", "dense")
     by_path, digests = {}, {}
     for cfg, mode, codec, rule in paths + [efbv_ring] + overlap_paths:
         name = f"{cfg.name} {mode} {codec}" + (
@@ -2604,6 +3008,17 @@ def main(argv=None):
         f"diagnostics bitwise equal to the run without ({len(off)} of "
         f"{len(runs[False])} leaf digests differ)")
     del runs
+    # the MoE family at full width, cut in depth, both wires on the ring
+    t0 = time.perf_counter()
+    name = f"{moe.name} q8_ring_fused q8_block moe_wire=q8 act_wire=q8"
+    by_path[name], _, _ = phase_main_path(
+        moe, "q8_ring_fused", mesh_kw=dict(data=MOE_W), plain_round=True,
+        w=MOE_W, wires=("q8", "q8"))
+    torch.cuda.empty_cache()
+    log(f"the MoE path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_configs()
+    log(f"the configs phase: {time.perf_counter() - t0:.1f} s")
     by_path["qwen3-0.6b codecs"] = phase_codecs(qwen)
     by_path["qwen3-0.6b dense natural_dithering"], _, _ = phase_main_path(
         qwen, "dense", "natural_dithering")

@@ -6,6 +6,7 @@ port runs.
 structural wire bits (DCGD-STAR's and GDCI's messages);
 ``Channel.broadcast`` the downlink, one encode per leaf from the sender
 (the model wire of ``comm.transport``, ``serving.delta``);
+``Channel.all_to_all`` one forwarded payload (the moe and act wires);
 ``Channel.push_mean`` is an uplink then its aggregation;
 ``Channel.shift_round`` schedules one shift-rule round, and
 ``Channel.fused_round`` its reduce/apply tail for messages the backward
@@ -33,7 +34,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.comm.wire import LeafNoise, encode_decode_workers
+from repro_torch.comm.wire import (
+    LeafNoise,
+    encode_decode_workers,
+    encode_meta_free,
+)
 from repro_torch.core.compressors import ShapeDtype, f32_bits
 from repro_torch.dist.collectives import (
     AGGREGATION_MODES,
@@ -111,6 +116,24 @@ class Channel:
                     == leaf.untyped_storage().data_ptr())
             out[k] = d.clone() if same else d
         return out, bits
+
+    def all_to_all(self, q, rand, x: torch.Tensor, minus=()):
+        """The forwarded-payload transport of the moe and act wires:
+        encode ``x`` with codec ``q`` and the draws ``rand``, and return
+        the receiver's decode.  The receiver sees only the payload, so a
+        codec that keeps decoder state in ``meta`` is rejected
+        (``encode_meta_free``), as on the ring's hops.  The wire, not
+        the channel, accounts the bits (``comm.transport``).  With
+        ``minus`` (tensors shaped as ``x``) it returns ``(decoded,
+        [decoded - t for t in minus])``, each difference with the decode
+        fused in, ``decode_add(payload, -t)``: one fma for
+        ``Int8Stochastic``, as XLA contracts the reference's."""
+        payload = encode_meta_free(q, rand, x)
+        like = ShapeDtype.of(x)
+        decoded = q.decode(payload, {}, like)
+        if not minus:
+            return decoded
+        return decoded, [q.decode_add(payload, {}, -t, like) for t in minus]
 
     def reduce(self, noise, wtree: Tree) -> Dict[str, WorkerMean]:
         """Master-side aggregation: the worker mean of each leaf, as a

@@ -181,7 +181,10 @@ class AsyncChannel(MeshChannel):
         side.wait_stream(main)          # the bucket's messages are ready
         with torch.cuda.stream(side):
             for t in sub.values():
-                t.record_stream(side)
+                # the messages, and the payloads of marked ones
+                # (``dist.collectives.with_payload_rows``), are read here
+                for u in (t, *getattr(t, "payload_rows", ())):
+                    u.record_stream(side)
             means = reduce()
             for m in means:
                 _tensor_of(m).record_stream(main)

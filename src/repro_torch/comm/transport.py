@@ -1,6 +1,5 @@
 """The Transport layer: every wire of a run as one registry -- the port
-of the reference's ``repro/comm/transport.py`` for the ``grad`` and
-``model`` wires.
+of the reference's ``repro/comm/transport.py``.
 
   ``Wire``       one named traffic stream: a topology, the codec whose
         payload rides it, an optional shift rule + Channel (the
@@ -9,11 +8,12 @@ of the reference's ``repro/comm/transport.py`` for the ``grad`` and
   ``Transport``  the per-step registry of every Wire; ``per_wire_bits``
         is the accounting table.
   ``build_transport``  the standard registry from a
-        ``CompressionConfig``: the grad wire always, the ``model`` wire
-        (the trainer -> serving-fleet downlink, ``serving.delta``) when
-        its flag is set.  The ``moe`` and ``act`` wires and the
-        forwarded-payload topologies (``all_to_all``, ``p2p``) raise,
-        naming the ROADMAP item that ports them.
+        ``CompressionConfig``: the grad wire always; when their flags
+        are set the ``moe`` wire (``all_to_all``: the MoE layers'
+        expert buffers), the ``act`` wire (``p2p``: the block-boundary
+        activations) -- both forwarded payloads, ``Wire.send`` -- and
+        the ``model`` wire (``broadcast``: the trainer -> serving-fleet
+        downlink, ``serving.delta``).
 
 Noise rule (the reference's keying rule, on the port's noise sources):
 the grad wire hands its round's noise VERBATIM to ``rule.round``
@@ -22,7 +22,9 @@ the grad wire hands its round's noise VERBATIM to ``rule.round``
 without it, and the training step routes every round through it; every other
 wire draws from its own stream, ``wire_stream(noise, name)``
 (``AddressedNoise.stream``: the CRC-32 of the wire's name becomes a
-field of every address), so no two wires share draws.
+field of every address), so no two wires share draws; a send on the moe
+and act wires is addressed by (round, layer, worker, group, part)
+(``WorkerWireNoise``).
 
 Accounting is ahead of time and structural: ``Compressor.payload_like``
 runs a codec's encode on meta tensors (shapes, no data, no draw), the
@@ -46,17 +48,14 @@ import torch
 
 from repro_torch.core.compressors import ShapeDtype, _tensor_leaves
 
-#: wire topologies of the reference; the port runs ``allreduce`` (the
-#: grad wire) and ``broadcast`` (the model wire)
+#: wire topologies of the reference: ``allreduce`` (the grad wire),
+#: ``all_to_all`` (moe), ``p2p`` (act), ``broadcast`` (model)
 WIRE_TOPOLOGIES = ("allreduce", "all_to_all", "p2p", "broadcast")
 
-#: per-wire codec flags the config/CLI surface accepts (``--model_wire``)
+#: per-wire codec flags the config/CLI surface accepts (``--moe_wire``,
+#: ``--act_wire``, ``--model_wire``)
 WIRE_CODEC_FLAGS = ("none", "dense", "q8", "randk", "topk", "sign",
                     "natural")
-
-#: where the other wires and topologies come in
-_WIRES_ITEM = "ROADMAP queue 1, item 9 (other wires and architectures)"
-
 
 def wire_stream(noise, name: str):
     """THE per-wire noise derivation: the stream of the wire ``name``
@@ -131,7 +130,7 @@ def aggregation_wire_codec(comp):
 def _payload_like(codec, like: ShapeDtype, topology: str):
     """The payload of ONE send of ``like`` through ``codec``, as meta
     tensors: a worker-stacked ``(W, ...)`` leaf on an allreduce wire
-    (one payload a worker), the whole leaf on a broadcast wire."""
+    (one payload a worker), the whole tensor on the other wires."""
     if topology == "allreduce":
         w, *inner = like.shape
         one = codec.payload_like(ShapeDtype(tuple(inner), like.dtype,
@@ -176,10 +175,6 @@ class Wire:
         if self.topology not in WIRE_TOPOLOGIES:
             raise ValueError(f"unknown wire topology {self.topology!r}; "
                              f"have {WIRE_TOPOLOGIES}")
-        if self.topology in ("all_to_all", "p2p"):
-            raise NotImplementedError(
-                f"{self.topology} wires (the moe and act wires) are not "
-                f"ported yet: {_WIRES_ITEM}")
 
     # -- the allreduce grad wire: the shift-rule engine, noise VERBATIM --
 
@@ -207,6 +202,26 @@ class Wire:
     def reduce_mean(self, noise, wtree):
         """The channel's worker mean (an uncompressed step's round)."""
         return self.channel.reduce_mean(noise, wtree)
+
+    # -- the forwarded-payload wires (moe, act): one compressed hop -------
+
+    def send(self, draw, x: torch.Tensor, e: Optional[torch.Tensor] = None):
+        """One compressed hop of ``x`` with the draws ``draw``
+        (``SendDraw``): ``(y, e_new)``.  The forward value is ``x +
+        (decoded - x)``, rounded as the reference's jitted send rounds
+        it (the difference with the decode fused in,
+        ``Channel.all_to_all``'s ``minus``); the backward pass is
+        straight through (the decode counts as the identity).  With a
+        shift ``e`` the error-compensated ``target = x + e`` rides the
+        wire and its residual ``target - decoded`` (fused the same way)
+        is the next send's shift."""
+        target = x if e is None else x + e.to(x.dtype)
+        with torch.no_grad():
+            xd, td = x.detach(), target.detach()
+            _, diffs = self.channel.all_to_all(
+                self.codec, draw, td, minus=(xd,) if e is None else (xd, td))
+        e_new = None if e is None else diffs[1].neg_()
+        return x + diffs[0], e_new
 
     # -- the broadcast model wire ----------------------------------------
 
@@ -277,8 +292,50 @@ class Transport:
         return {name: wire.wire_bits() for name, wire in self._wires.items()}
 
 
+@dataclass(frozen=True)
+class SendDraw:
+    """The draws of one send on a forwarded-payload wire: ``source`` is
+    the wire's stream at the step's round, ``address`` ``(layer, worker,
+    group, part)``.  Called with a shape it gives uniforms; its
+    ``permutation(d)`` an index draw (Rand-K)."""
+
+    source: Any
+    address: Tuple
+
+    def __call__(self, shape) -> torch.Tensor:
+        return self.source.send_uniform(self.address, tuple(shape))
+
+    def permutation(self, d: int) -> torch.Tensor:
+        return self.source.send_permutation(self.address, d)
+
+
+class WorkerWireNoise:
+    """One worker's draws on the ``act`` and ``moe`` wires of one step:
+    each wire's stream (``wire_stream``) at the round of ``noise``, a
+    send addressed by (layer, worker, group, part) -- the reference's
+    ``wire_stream(key, "transport")`` split over the workers, then
+    ``wire_stream(key, "moe" / "act")`` folded by layer and group and
+    split into dispatch and combine."""
+
+    def __init__(self, noise, worker: int):
+        self.worker = worker
+        self._streams = {name: wire_stream(noise, name).at_round(noise.round)
+                         for name in ("act", "moe")}
+
+    def act(self, layer: int) -> SendDraw:
+        """The draws of layer ``layer``'s block-boundary send."""
+        return SendDraw(self._streams["act"], (layer, self.worker, None, None))
+
+    def moe(self, layer: int, group: int, part: str) -> SendDraw:
+        """The draws of MoE layer ``layer``'s send ``part`` (``"dispatch"``
+        or ``"combine"``) of token group ``group``."""
+        return SendDraw(self._streams["moe"], (layer, self.worker, group,
+                                               part))
+
+
 def build_transport(comp, cfg, channel, *, rule=None, msg_codec=None,
-                    w: int = 1, params_like=None) -> Transport:
+                    w: int = 1, params_like=None,
+                    tokens_per_worker: int = 0) -> Transport:
     """The standard per-step Transport of one run.
 
     The ``grad`` wire always: its accounting codec is
@@ -290,12 +347,15 @@ def build_transport(comp, cfg, channel, *, rule=None, msg_codec=None,
     .shape and .dtype}``) declares the grad wire's traffic as
     worker-stacked leaves and the model wire's as the leaves themselves;
     omit it for a transport that never reads ``per_wire_bits``.
+
+    The ``moe`` wire (``all_to_all``) and the ``act`` wire (``p2p``)
+    when their flags are set, their traffic declared when
+    ``tokens_per_worker`` is known: the moe wire 2 sends of the (E, C,
+    D) expert buffer per group per MoE layer per worker
+    (``models.moe.moe_wire_traffic``), the act wire one (tokens,
+    d_model) send per layer per worker.  Each raises the reference's
+    ``ValueError`` for an architecture that cannot carry it.
     """
-    for flag in ("moe_wire", "act_wire"):
-        if getattr(comp, flag, "none") != "none":
-            raise NotImplementedError(
-                f"{flag} {getattr(comp, flag)!r}: the {flag[:-5]} wire is "
-                f"not ported yet: {_WIRES_ITEM}")
     meta = torch.device("meta")
     leaves = [] if params_like is None else list(params_like.values())
     wires = [Wire(
@@ -305,6 +365,42 @@ def build_transport(comp, cfg, channel, *, rule=None, msg_codec=None,
         traffic=tuple((ShapeDtype((w, *leaf.shape), leaf.dtype, meta), 1)
                       for leaf in leaves),
     )]
+    moe_flag = getattr(comp, "moe_wire", "none")
+    if moe_flag != "none":
+        if not cfg.is_moe:
+            raise ValueError(
+                f"moe_wire {moe_flag!r} needs a MoE architecture; "
+                f"{cfg.name!r} has n_experts={cfg.n_experts}")
+        from repro_torch.models.moe import moe_wire_traffic
+
+        traffic = ()
+        if tokens_per_worker > 0:
+            n_moe_layers = cfg.n_layers - cfg.first_dense_layers
+            traffic = tuple(
+                (like, count * n_moe_layers * w)
+                for like, count in moe_wire_traffic(cfg, tokens_per_worker))
+        wires.append(Wire(
+            name="moe", topology="all_to_all",
+            codec=wire_flag_codec(moe_flag, randk_q=comp.randk_q),
+            channel=channel, traffic=traffic))
+
+    act_flag = getattr(comp, "act_wire", "none")
+    if act_flag != "none":
+        if cfg.arch_type not in ("dense", "vlm", "moe"):
+            raise ValueError(
+                f"act_wire {act_flag!r} supports arch_type dense|vlm|moe "
+                f"(residual-stream blocks); {cfg.name!r} is "
+                f"{cfg.arch_type!r}")
+        traffic = ()
+        if tokens_per_worker > 0:
+            traffic = ((ShapeDtype((tokens_per_worker, cfg.d_model),
+                                   getattr(torch, cfg.dtype), meta),
+                        cfg.n_layers * w),)
+        wires.append(Wire(
+            name="act", topology="p2p",
+            codec=wire_flag_codec(act_flag, randk_q=comp.randk_q),
+            channel=channel, traffic=traffic))
+
     model_flag = getattr(comp, "model_wire", "none")
     if model_flag != "none":
         every = max(1, int(getattr(comp, "publish_every", 1)))

@@ -40,7 +40,8 @@ bit against the reference's):
 * ``AddressedNoise``, the training step's (``launch.train.init_state``):
   every draw is a pure function of its address -- the seed, the wire
   (``stream``: none on the gradient wire), the round, the kind of draw
-  and its (leaf, worker or hop, part) -- so a round draws the same bits
+  and its (leaf, worker or hop, part), or on the moe and act wires its
+  (layer, worker, group, part) (``send_uniform``) -- so a round draws the same bits
   in ANY order of its calls.  That is what lets the
   overlap runtime (``comm.overlap``: bucket by bucket, message then
   ring) and the fused backward encode (``comm.fused_vjp``: worker by
@@ -133,7 +134,8 @@ def _field(v) -> int:
 
 
 #: the kinds of draw, one address space each
-_UNIFORM, _PERMUTATION, _AUX, _RING, _POD, _PATTERN = range(6)
+(_UNIFORM, _PERMUTATION, _AUX, _RING, _POD, _PATTERN, _SEND,
+ _SEND_PERMUTATION) = range(8)
 
 
 class AddressedNoise:
@@ -172,10 +174,10 @@ class AddressedNoise:
         """This source's addresses at round ``r``."""
         return AddressedNoise(self.seed, self.device, self.wire, r)
 
-    def _at(self, kind: int, leaf, sub, part) -> torch.Generator:
+    def _at(self, kind: int, *fields) -> torch.Generator:
         head = (self.seed,) if self.wire is None else (self.seed, self.wire)
         h = 0
-        for v in head + (self.round, kind, leaf, sub, part):
+        for v in head + (self.round, kind) + fields:
             h = _splitmix64(h ^ _field(v))
         self.generator.manual_seed(h)
         return self.generator
@@ -218,6 +220,20 @@ class AddressedNoise:
         permutation of ``range(d)`` (int64) shared by every worker."""
         return torch.randperm(d, generator=self._at(_PATTERN, leaf, None,
                                                     None),
+                              device=self.device)
+
+    def send_uniform(self, address: tuple, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1) for one send of a forwarded-payload
+        wire (this source is the wire's stream): ``address`` is ``(layer,
+        worker, group, part)``, as ``comm.transport.SendDraw`` gives it."""
+        return torch.rand(shape, generator=self._at(_SEND, *address),
+                          device=self.device, dtype=torch.float32)
+
+    def send_permutation(self, address: tuple, d: int) -> torch.Tensor:
+        """A random permutation of ``range(d)`` (int64) for one send of a
+        forwarded-payload wire (``send_uniform``'s address)."""
+        return torch.randperm(d, generator=self._at(_SEND_PERMUTATION,
+                                                    *address),
                               device=self.device)
 
     def next_round(self) -> None:
@@ -331,6 +347,11 @@ def encode_decode_workers(codec, noise: LeafNoise, leaf: torch.Tensor
         payload, meta = codec.encode(rand, leaf[j])
         out[j] = codec.decode(payload, meta, like)
         payloads.append(payload)
+    if getattr(codec, "sum_fuses_decode", False) and out.dtype == torch.float32:
+        from repro_torch.dist.collectives import with_payload_rows
+
+        with_payload_rows(out, torch.stack([p["q"] for p in payloads]),
+                          torch.stack([p["scale"] for p in payloads]))
     return payloads, out
 
 

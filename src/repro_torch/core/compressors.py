@@ -257,9 +257,15 @@ class Int8Stochastic(Unbiased):
     scale is ``max(max|x|, 1e-30) * f32(1/levels)`` (division by a
     constant becomes a product with its reciprocal), ``x / scale`` an
     IEEE division, and the int8 convert saturates and maps NaN to 0.
+    ``sum_fuses_decode``: the reference's jitted round sums up to 32
+    workers' messages with this decode fused in, ``acc = fma(q_j,
+    scale_j, acc)``; ``comm.wire.encode_decode_workers`` marks the
+    decoded rows with their payloads so the port's sums do the same
+    (``dist.collectives.with_payload_rows``).
     """
 
     levels: int = 127
+    sum_fuses_decode = True
 
     def encode(self, rand, x):
         xf = x.to(torch.float32)

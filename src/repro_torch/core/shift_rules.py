@@ -51,7 +51,7 @@ import torch
 from repro_torch.comm.channel import Channel, SimChannel
 from repro_torch.comm.wire import LeafNoise, encode_decode_workers, worker_draws
 from repro_torch.core.compressors import Compressor, ShapeDtype, Zero, f32_bits
-from repro_torch.dist.collectives import WorkerMean
+from repro_torch.dist.collectives import WorkerMean, drop_payload_rows
 
 Tree = Dict[str, torch.Tensor]
 
@@ -252,7 +252,8 @@ class DianaShift(ShiftRule):
             return qm, 0.0 + q.wire_bits(payloads)
         cpay, cm = encode_decode_workers(self.c, noise.with_part("c"), diff)
         qpay, qm = encode_decode_workers(q, qnoise, diff - cm)
-        return cm.add_(qm), self.c.wire_bits(cpay) + q.wire_bits(qpay)
+        return (drop_payload_rows(cm.add_(qm)),
+                self.c.wire_bits(cpay) + q.wire_bits(qpay))
 
     def message_draws(self, q, noise, w):
         cd = worker_draws(self.c, noise.with_part("c"), w)

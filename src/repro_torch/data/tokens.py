@@ -1,7 +1,7 @@
 """Deterministic synthetic token streams for LM training.
 
-The port of the reference's ``repro/data/tokens.py`` text path: the
-same Markov-ish stream ``x_{t+1} = (31 * x_t + n_t) mod V`` with a
+The port of the reference's ``repro/data/tokens.py`` (text and the
+vision-prefix stub): the same Markov-ish stream ``x_{t+1} = (31 * x_t + n_t) mod V`` with a
 uniform start token and noise ``n_t`` in [0, 97), drawn from a
 ``torch.Generator`` seeded from ``(seed, step)`` -- so every batch is a
 pure function of its step.  The draws are torch's: for the same seed the
@@ -34,18 +34,30 @@ class TokenStream:
 
 def synth_batch(gen: torch.Generator, cfg: ModelConfig, seq_len: int,
                 batch: int, device="cpu") -> Dict[str, torch.Tensor]:
-    """One batch ``{"tokens": (batch, seq_len) int64}``, drawn on the CPU
-    from ``gen`` and moved to ``device``."""
-    if cfg.modality != "text" or cfg.is_encoder_decoder:
+    """One batch ``{"tokens": (batch, text_len) int64}``, drawn on the CPU
+    from ``gen`` and moved to ``device``.  For the ``vision_prefix``
+    modality the batch holds ``prefix`` too, the stub of the projected
+    patch embeddings, (batch, num_prefix_tokens, d_model) f32 normals
+    times 0.02, and the text fills the rest of the sequence: ``text_len
+    = max(2, seq_len - num_prefix_tokens)``."""
+    if cfg.modality == "audio_frames" or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            "modality frontends come with their architectures: ROADMAP "
-            "queue 1, item 9"
+            "the audio frontend comes with its architecture: ROADMAP "
+            "queue 1, item 9f (audio encoder-decoder)"
         )
     v = cfg.vocab_size
+    text_len = seq_len
+    if cfg.modality == "vision_prefix":
+        text_len = max(2, seq_len - cfg.num_prefix_tokens)
     x = torch.randint(0, v, (batch,), generator=gen)
-    noise = torch.randint(0, 97, (batch, seq_len), generator=gen)
-    toks = torch.empty((batch, seq_len), dtype=torch.int64)
-    for t in range(seq_len):
+    noise = torch.randint(0, 97, (batch, text_len), generator=gen)
+    toks = torch.empty((batch, text_len), dtype=torch.int64)
+    for t in range(text_len):
         x = (x * 31 + noise[:, t]) % v
         toks[:, t] = x
-    return {"tokens": toks.to(device)}
+    out = {"tokens": toks.to(device)}
+    if cfg.modality == "vision_prefix":
+        out["prefix"] = (torch.randn(
+            (batch, cfg.num_prefix_tokens, cfg.d_model), generator=gen,
+            dtype=torch.float32) * 0.02).to(device)
+    return out

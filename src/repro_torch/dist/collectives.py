@@ -86,7 +86,7 @@ class WorkerMean:
 
     @classmethod
     def of_rows(cls, rows: torch.Tensor) -> "WorkerMean":
-        return cls(_local_sum(rows), rows.shape[0], dtype=rows.dtype)
+        return cls(_sum_rows(rows), rows.shape[0], dtype=rows.dtype)
 
     def _coef(self, c: float) -> float:
         return _f32(_f32(c) * _f32(1.0 / self.w))
@@ -123,8 +123,47 @@ def dense_mean(wtree: Tree) -> Tree:
     """Exact mean over the leading worker axis, leaf-wise, bit for bit
     the reference's ``jnp.mean(a, axis=0)`` as XLA computes it (see
     ``_local_sum`` and ``_mean_of_sum``)."""
-    return {k: _mean_of_sum(_local_sum(a), a.shape[0], a.dtype)
+    return {k: _mean_of_sum(_sum_rows(a), a.shape[0], a.dtype)
             for k, a in wtree.items()}
+
+
+def with_payload_rows(rows: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Mark W-stacked f32 rows as the decodes ``q[j] * scale[j]`` of
+    their payloads (``q`` (W, ...) int8, ``scale`` (W,) f32: the
+    ``Int8Stochastic`` messages) and return them.  The reference's
+    jitted round fuses that decode into the worker sum of up to 32 rows,
+    one fma a worker (``_local_sum`` with per-row scales); the sums here
+    read the mark (``_sum_rows``).  An op that makes new rows drops it;
+    code that changes marked rows in place must drop it
+    (``drop_payload_rows``)."""
+    rows.payload_rows = (q, scale)
+    return rows
+
+
+def drop_payload_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` without the mark of ``with_payload_rows``."""
+    if hasattr(rows, "payload_rows"):
+        del rows.payload_rows
+    return rows
+
+
+def _sum_rows(rows: torch.Tensor, lo: int = 0, hi: Optional[int] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 sum of rows ``[lo, hi)`` as the reference's jitted round
+    takes it (``_local_sum``), flattened into ``out`` when given: over
+    the payloads with their per-row scales for marked rows
+    (``with_payload_rows``) when at most 32 rows are summed, where XLA
+    fuses the decode into the sum; else over the rows themselves (XLA's
+    windowed sum of more rows reads the rounded decodes)."""
+    hi = rows.shape[0] if hi is None else hi
+    parts = getattr(rows, "payload_rows", None)
+    x, scale = rows[lo:hi], None
+    if parts is not None and hi - lo <= _XLA_WINDOW:
+        x, scale = parts[0][lo:hi], parts[1][lo:hi]
+    if out is not None:
+        x = x.reshape(hi - lo, -1)
+    return _local_sum(x, out, scale)
 
 
 def _leaf_indices(leaves, leaf_indices) -> tuple:
@@ -222,8 +261,28 @@ def _ring_schedule(draws: _LeafDraws, chunks: torch.Tensor, n: int, *,
 _XLA_WINDOW = 32
 
 
+def _rows_marked(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of ``x``, with their part of its payload mark."""
+    parts = getattr(x, "payload_rows", None)
+    if parts is None:
+        return x[lo:hi]
+    return with_payload_rows(x[lo:hi], parts[0][lo:hi], parts[1][lo:hi])
+
+
+def _narrow_marked(x: torch.Tensor, dim: int, start: int, size: int
+                   ) -> torch.Tensor:
+    """A contiguous copy of ``x.narrow(dim, start, size)`` (``dim`` an
+    inner dim), with the same slice of its payload mark."""
+    out = x.narrow(dim, start, size).contiguous()
+    parts = getattr(x, "payload_rows", None)
+    if parts is None:
+        return out
+    return with_payload_rows(out, parts[0].narrow(dim, start, size),
+                             parts[1])
+
+
 def _local_sum(rows: torch.Tensor, out: Optional[torch.Tensor] = None,
-               scale: Optional[float] = None) -> torch.Tensor:
+               scale=None) -> torch.Tensor:
     """``out`` (allocated when None) = the f32 sum of ``rows`` over the
     leading axis in the order of XLA's CPU reduce in the reference:
     up to 32 rows one after another; a longer axis zero-padded to a
@@ -231,7 +290,10 @@ def _local_sum(rows: torch.Tensor, out: Optional[torch.Tensor] = None,
     windows of 32 rows each summed in order, and the window sums summed
     the same way.  (``torch.sum`` may pair rows otherwise.)  With
     ``scale`` the rows are ``rows * scale``, a product XLA fuses into
-    the reduction: each row enters with one fma (``fma_f32``)."""
+    the reduction: each row enters with one fma (``fma_f32``).
+    ``scale`` is one float for every row (``randk_shared``'s d / K) or a
+    (W,) f32 tensor, one per row (the payload scales of
+    ``Int8Stochastic`` messages, ``_sum_rows``; at most 32 rows)."""
     if out is None:
         out = torch.empty(rows.shape[1:], dtype=torch.float32,
                           device=rows.device)
@@ -250,10 +312,12 @@ def _local_sum(rows: torch.Tensor, out: Optional[torch.Tensor] = None,
         for r in rows[1:]:
             out += r
         return out
-    c = torch.tensor(scale, dtype=torch.float32, device=rows.device)
-    out.copy_(rows[0] * c)
-    for r in rows[1:]:
-        out.copy_(fma_f32(r, c, out))
+    c = (scale.to(torch.float32) if torch.is_tensor(scale) else
+         torch.tensor(scale, dtype=torch.float32,
+                      device=rows.device).expand(w))
+    out.copy_(rows[0].to(torch.float32) * c[0])
+    for r, cj in zip(rows[1:], c[1:]):
+        out.copy_(fma_f32(r, cj, out))
     return out
 
 
@@ -273,7 +337,7 @@ def _ring_buffers(x: torch.Tensor, n: int, chunk_shape) -> torch.Tensor:
     buf = torch.zeros((n, n * math.prod(chunk_shape)), dtype=torch.float32,
                       device=x.device)
     for p in range(n):
-        _local_sum(x[p * k:(p + 1) * k].reshape(k, d), buf[p, :d])
+        _sum_rows(x, p * k, (p + 1) * k, out=buf[p, :d])
     return buf.reshape(n, n, *chunk_shape)
 
 
@@ -415,9 +479,11 @@ def q8_ring_tree_mean(noise, tree: Tree, mesh, *,
                 xs = x
             else:
                 size = x.shape[dim + 1] // mesh.model
-                xs = x.narrow(dim + 1, s * size, size).contiguous()
-            accs = [_local_sum(xp) if n == 1 else ring(draws, xp, n, codec)
-                    for xp in xs.split(rows)]
+                xs = _narrow_marked(x, dim + 1, s * size, size)
+            accs = [_sum_rows(xs, p * rows, (p + 1) * rows)
+                    if n == 1 else ring(draws, _rows_marked(
+                        xs, p * rows, (p + 1) * rows), n, codec)
+                    for p in range(pods)]
             del xs
             shards.append(accs[0] if pods == 1 else
                           _pod_sum(draws, accs, codec))

@@ -15,12 +15,17 @@ decode state's partition specs on a mesh (``dist.sharding``); the
 reference's dry-run surface ``decode_specs`` comes with ROADMAP queue 1,
 item 11.
 
-CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \\
           [--smoke] [--batch B] [--prompt-len P] [--gen-len G] \\
           [--broadcast-compressor identity|int8|q8_block|natural] \\
           [--serve_fleet N [--model_wire dense|q8|natural|...] \\
            [--publish_every K] [--stale_k K] [--trainer_steps N]] \\
           [--device cuda|cpu]
+
+``ARCH`` is any id of ``repro_torch.configs.ARCH_IDS``: qwen3-0.6b,
+internlm2-20b, qwen1.5-32b, qwen2.5-32b, llava-next-34b (its text
+decoder: the vision prefix is a training-time input), qwen2-moe-a2.7b
+(the ``kv_moe`` caches) or rwkv6-3b.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@ the production step, the port of the reference's
 ``repro/launch/train.py`` for this slice.
 
 One step: per-worker gradients (``dist.worker_grads``, W workers stacked
-on one device), one shift-rule round through the transport's grad wire
+on one device; with the moe and act wires set, each worker's forward
+sends its MoE layers' expert buffers and its blocks' outputs through
+them, ``comm.transport``), one shift-rule round through the transport's grad wire
 (``comm.transport``: ``rule.round``, message -> aggregate -> apply,
 through the channel; the codec's encode and decode run the CUDA kernels
 on a GPU, and so do the hops of the ``q8_ring_fused`` aggregation over
@@ -35,6 +37,9 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
                        efbv|q8_ring_overlap|efbv_overlap|
                        q8_ring_fused_vjp] \
           [--drift-resync-every N] [--efbv-eta ETA] [--efbv-nu NU] \
+          [--moe-wire none|dense|q8|...] [--act-wire none|dense|q8|...] \
+          [--model-wire none|dense|q8|natural|... [--publish_every N] \
+           [--serve_fleet N] [--stale_k K]] \
           [--lr LR] [--no-compression] [--device cuda|cpu]
 
 The worker count is the size of the host mesh's ``data`` axis, as in the
@@ -53,10 +58,15 @@ from repro_torch.comm import fused_vjp
 from repro_torch.comm.channel import (
     CHANNEL_MODES,
     FUSED_VJP_MODES,
+    SimChannel,
     make_channel,
     resync_h_bar,
 )
-from repro_torch.comm.transport import build_transport
+from repro_torch.comm.transport import (
+    WIRE_CODEC_FLAGS,
+    WorkerWireNoise,
+    build_transport,
+)
 from repro_torch.comm.wire import AddressedNoise
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
@@ -122,20 +132,26 @@ def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
                       0, f32_bits())
 
 
-def worker_loss(cfg: ModelConfig, rule=None, q=None):
+def worker_loss(cfg: ModelConfig, rule=None, q=None, wires=None):
     """One worker's ``loss_fn(params, batch) -> (loss, metrics)``.  With
     ``rule`` and ``q`` (the fused mode) its batch carries the worker's
     draws and shifts (``with_fused_draws``), and the params are tapped
     with them: the gradient of the loss IS the worker's decoded wire
-    message (``comm.fused_vjp``)."""
+    message (``comm.fused_vjp``).  With ``wires`` (a transport holding
+    the moe or act wire) its batch carries the worker's draws on them
+    (``wire_noise``, ``comm.transport.WorkerWireNoise``)."""
     def loss_fn(params, batch):
-        tap = None
-        if rule is not None:
+        tap = wire_noise = None
+        if rule is not None or wires is not None:
             batch = dict(batch)
+        if rule is not None:
             draws, fh = batch.pop("fused_draws"), batch.pop("fused_h", None)
             tap = lambda p: fused_vjp.encode_on_backward(  # noqa: E731
                 rule, q, p, draws, fh)
-        return M.train_loss(params, cfg, batch, param_tap=tap)
+        if wires is not None:
+            wire_noise = batch.pop("wire_noise")
+        return M.train_loss(params, cfg, batch, param_tap=tap, wires=wires,
+                            wire_noise=wire_noise)
 
     return loss_fn
 
@@ -156,9 +172,9 @@ def with_fused_draws(wbatch, rule, q, state: TrainState, w: int):
 
 def params_like(cfg: ModelConfig) -> dict:
     """``{path: ShapeDtype}`` of ``cfg``'s params, on the meta device."""
-    dtype = getattr(torch, cfg.dtype)
-    return {path: ShapeDtype(tuple(shape), dtype, torch.device("meta"))
-            for path, shape, _ in M.param_specs(cfg)}
+    return {path: ShapeDtype(tuple(shape), M.leaf_dtype(cfg, init),
+                             torch.device("meta"))
+            for path, shape, init in M.param_specs(cfg)}
 
 
 def build_channel(comp: CompressionConfig, cfg: ModelConfig,
@@ -225,12 +241,23 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                 "rule 'vr_gdci' has no gradient message to fuse"
             )
         fused_vjp.check_fusible(rule)
-    grad_wire = build_transport(comp, cfg, channel, rule=rule, msg_codec=q,
-                                w=w)["grad"]
-    loss_fn = worker_loss(cfg, rule, q) if fused else worker_loss(cfg)
+    # every wire of the step is registered on the transport: the grad
+    # wire wraps the channel and the rule, the moe and act wires (when
+    # set) ride into the forward pass
+    transport = build_transport(comp, cfg, channel, rule=rule, msg_codec=q,
+                                w=w)
+    grad_wire = transport["grad"]
+    wired = "moe" in transport or "act" in transport
+    loss_fn = worker_loss(cfg, rule if fused else None, q if fused else None,
+                          wires=transport if wired else None)
 
     def train_step(state: TrainState, batch):
         wbatch = split_batch(batch, w)
+        if wired:
+            # each worker's draws on the moe / act wires, addressed by
+            # (round, wire, worker, layer, group, part)
+            wbatch["wire_noise"] = [WorkerWireNoise(state.noise, j)
+                                    for j in range(w)]
         if fused:
             wbatch = with_fused_draws(wbatch, rule, q, state, w)
         grads, loss, metrics = per_worker_grads(loss_fn, state.params, wbatch)
@@ -343,6 +370,32 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--efbv-nu", "--efbv_nu", dest="efbv_nu",
                     type=float, default=1.0,
                     help="EF-BV estimator mixing")
+    ap.add_argument("--moe-wire", "--moe_wire", dest="moe_wire",
+                    default="none", choices=list(WIRE_CODEC_FLAGS),
+                    help="codec for the MoE dispatch/combine all-to-all "
+                         "wire ('none' leaves it off the transport; "
+                         "'dense' routes it uncompressed)")
+    ap.add_argument("--act-wire", "--act_wire", dest="act_wire",
+                    default="none", choices=list(WIRE_CODEC_FLAGS),
+                    help="codec for the block-boundary activation wire "
+                         "(straight-through backward)")
+    ap.add_argument("--model-wire", "--model_wire", dest="model_wire",
+                    default="none", choices=list(WIRE_CODEC_FLAGS),
+                    help="codec for the trainer->serving model-delta "
+                         "downlink ('none' leaves it off the transport)")
+    ap.add_argument("--publish_every", "--publish-every",
+                    dest="publish_every", type=int, default=1,
+                    help="trainer steps between model-delta publishes on "
+                         "the downlink")
+    ap.add_argument("--serve_fleet", "--serve-fleet", dest="serve_fleet",
+                    type=int, default=0,
+                    help="N > 0: co-run N continuous-batching serving "
+                         "replicas off the model-delta stream while "
+                         "training")
+    ap.add_argument("--stale_k", "--stale-k", dest="stale_k", type=int,
+                    default=4,
+                    help="fleet staleness bound K (trainer steps behind) "
+                         "before a dense resync")
     ap.add_argument("--no-compression", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
@@ -364,7 +417,14 @@ def main(argv: Optional[list] = None):
         drift_resync_every=args.drift_resync_every,
         efbv_eta=args.efbv_eta,
         efbv_nu=args.efbv_nu,
+        moe_wire=args.moe_wire,
+        act_wire=args.act_wire,
+        model_wire=args.model_wire,
+        publish_every=args.publish_every,
     )
+    if args.serve_fleet > 0 and args.model_wire == "none":
+        raise SystemExit("--serve_fleet needs a model downlink; pass "
+                         "--model_wire (dense/q8/natural/...)")
     mesh = make_host_mesh(device)
     w = n_workers(mesh)
     if args.batch % w:
@@ -376,17 +436,45 @@ def main(argv: Optional[list] = None):
     state = init_state(0, cfg, tcfg, w, device)
     step_fn = build_train_step(cfg, tcfg, w, mesh)
     stream = TokenStream(cfg, args.seq, args.batch)
+    # the per-wire structural traffic of a step, every wire at once
+    acct = build_transport(comp, cfg, SimChannel(), w=w,
+                           params_like=params_like(cfg),
+                           tokens_per_worker=(args.batch // w) * args.seq)
+
+    bridge = None
+    if args.serve_fleet > 0:
+        from repro_torch.serving.fleet import TrainerFleetBridge
+
+        bridge = TrainerFleetBridge(
+            cfg, state.params, acct["model"], n_replicas=args.serve_fleet,
+            publish_every=comp.publish_every, stale_k=args.stale_k,
+            noise=AddressedNoise(1, device))
+
     print(f"arch={args.arch} params={M.count_params_analytic(cfg):,} "
           f"workers={w} device={device} compression={comp.enabled} "
           f"rule={comp.effective_shift_rule} comm={comp.comm_mode} "
-          f"compressor={comp.compressor}")
+          f"compressor={comp.compressor} moe_wire={comp.moe_wire} "
+          f"act_wire={comp.act_wire} model_wire={comp.model_wire}")
+    print("wire bytes/step: " + "  ".join(
+        f"{name}={bits / 8:,.0f}" for name, bits in
+        acct.per_wire_bits().items()))
     t0 = time.time()
     for i in range(args.steps):
         state, metrics = step_fn(state, stream.batch(i, device))
+        if bridge is not None:
+            bridge.on_step(state.params, i + 1)
         if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
             print(f"step {i:4d}  loss {float(metrics['loss']):.4f}  "
                   f"bits {float(metrics['bits']):.3e}  "
                   f"({time.time() - t0:.1f}s)")
+    if bridge is not None:
+        bridge.drain()
+        s = bridge.stats()
+        print(f"fleet[{args.serve_fleet}] wire={comp.model_wire}: "
+              f"{s['publishes']} publishes, {s['resyncs']} resyncs, "
+              f"{s['bytes_fraction']:.3f} of dense bytes/publish, "
+              f"max staleness {s['max_staleness']} (K={args.stale_k}), "
+              f"{s['tokens_served']} tokens served")
     return state
 
 

@@ -212,6 +212,15 @@ def make_attention_cache(cfg: ModelConfig, b: int, cache_len: int, dtype,
 # --------------------------------------------------------------------------
 
 
+def wire_boundary(wire, draw, x, e):
+    """Block-boundary activation compression: ``x`` through a transport
+    wire (``comm.transport.Wire.send``: a codec round trip, straight
+    through on the backward pass) with the error-feedback shift ``e``
+    threaded; ``draw`` is the send's draws.  An indirection, so layer
+    code never imports the comm package.  Returns ``(y, e_new)``."""
+    return wire.send(draw, x, e)
+
+
 def mlp_apply(p, x):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]

@@ -1,5 +1,5 @@
-"""AdamW with a cosine schedule, written out as the reference's
-``repro/optim/optimizers.py`` writes it -- not ``torch.optim.AdamW``,
+"""AdamW and SGD with a cosine schedule, written out as the reference's
+``repro/optim/optimizers.py`` writes them -- not ``torch.optim.AdamW``,
 which rounds differently.  As in the reference: every leaf is decayed
 (norm scales included), eps sits outside ``sqrt(v / bc2)``, moments are
 f32, and the schedule is evaluated in f32.
@@ -16,6 +16,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Union
 
 import torch
+
+from repro_torch.kernels.q8ring.ref import fma_f32
 
 Tree = Dict[str, torch.Tensor]
 
@@ -82,13 +84,49 @@ class adamw:
         return params, state
 
 
-def make_optimizer(train_cfg) -> adamw:
-    if train_cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {train_cfg.optimizer!r} is not ported yet (the port "
-            f"runs adamw): ROADMAP queue 1, item 4"
+@dataclass(frozen=True)
+class sgd:
+    """Plain SGD, with heavy-ball momentum when ``momentum > 0``: ``m =
+    momentum * m + g`` (else ``m = g``), ``p -= lr * m``.  ``m`` is f32;
+    ``v`` holds a 0-d zero a leaf, as the reference's state does.  Both
+    products are fmas (``fma_f32``), as XLA contracts the reference's."""
+
+    lr: Union[Callable, float] = 1e-2
+    momentum: float = 0.0
+
+    def init(self, params: Tree) -> OptState:
+        return OptState(
+            0,
+            {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in params.items()},
+            {k: torch.zeros((), dtype=torch.float32, device=p.device)
+             for k, p in params.items()},
         )
+
+    def update(self, grads: Tree, state: OptState, params: Tree):
+        """Returns ``(params, state)``, both updated in place."""
+        step = state.step + 1
+        lr = self.lr(step) if callable(self.lr) else _f32(self.lr)
+        for k, p in params.items():
+            g = grads[k].to(torch.float32)
+            if self.momentum > 0:
+                m = state.m[k].copy_(fma_f32(state.m[k], _f32(
+                    self.momentum).to(p.device), g))
+            else:
+                m = state.m[k].copy_(g)
+            p.copy_(fma_f32(m, -lr.to(p.device), p.to(torch.float32)))
+        state.step = step
+        return params, state
+
+
+def make_optimizer(train_cfg) -> Union[adamw, sgd]:
+    """``adamw`` or ``sgd`` (no momentum, as the reference builds it),
+    both on the cosine schedule."""
     lr = cosine_schedule(train_cfg.learning_rate, train_cfg.warmup_steps,
                          train_cfg.total_steps)
-    return adamw(lr=lr, beta1=train_cfg.beta1, beta2=train_cfg.beta2,
-                 eps=train_cfg.eps, weight_decay=train_cfg.weight_decay)
+    if train_cfg.optimizer == "adamw":
+        return adamw(lr=lr, beta1=train_cfg.beta1, beta2=train_cfg.beta2,
+                     eps=train_cfg.eps, weight_decay=train_cfg.weight_decay)
+    if train_cfg.optimizer == "sgd":
+        return sgd(lr=lr)
+    raise ValueError(train_cfg.optimizer)

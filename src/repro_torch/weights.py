@@ -3,7 +3,9 @@
 ``params_from_jax`` turns the reference's params pytree -- nested dicts
 of numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)`` --
 into the port's flat ``{path: tensor}`` dict, in the reference's leaf
-order.  ``state_from_jax`` does the same for the other ``TrainState``
+order; the port's names are the reference's paths at any depth (the MoE
+family's ``moe_blocks/moe/shared/w_gate``), and a stack of no layers
+(the reference's ``None``) has no leaves.  ``state_from_jax`` does the same for the other ``TrainState``
 parts (AdamW moments, shifts) so both sides can start from one state,
 and ``decode_state_from_jax`` for a decode state (caches, RWKV-6
 states).

@@ -205,6 +205,6 @@ def test_wkv_step_matches_reference():
 
 
 def test_unported_family_raises():
-    cfg = get_smoke_config("qwen3-0.6b").with_(arch_type="moe")
+    cfg = get_smoke_config("qwen3-0.6b").with_(arch_type="hybrid")
     with pytest.raises(NotImplementedError, match="item 9"):
         TM.make_decode_state(cfg, 1, 4, "cpu")

@@ -51,7 +51,8 @@ from repro_torch.launch.train import params_like
 ROOT = Path(__file__).resolve().parent.parent
 W, ALPHA = 8, 0.125
 #: the messages' codec: its decode is a kernel in the reference, so XLA
-#: cannot fuse it into the local sums (``Int8Stochastic``'s it does:
+#: cannot fuse it into the local sums (``Int8Stochastic``'s it does, and
+#: the port sums those as XLA does:
 #: ``test_int8_messages_sum_as_xla_fuses_them``)
 MSG_CODEC = "q8_block"
 
@@ -141,7 +142,7 @@ _REFERENCE = textwrap.dedent("""
                                      worker_stacked_pspec)
     from repro.kernels.q8ring.ops import q8_layout, ring_chunk_layout
 
-    src, dst, mode, codec = sys.argv[1:5]
+    src, dst, mode, codecs = sys.argv[1:5]
     data = dict(np.load(src))
     names = sorted(k[2:] for k in data if k.startswith("g/"))
     tree = lambda p: [jnp.asarray(data[p + k]) for k in names]
@@ -168,25 +169,30 @@ _REFERENCE = textwrap.dedent("""
         wspecs, mesh)
     flat_specs = jax.tree_util.tree_leaves(
         wspecs, is_leaf=lambda x: isinstance(x, P))
-    q = make_compressor(codec)
     rule = make_shift_rule("diana", alpha=float(data["alpha"]))
     key = jax.random.PRNGKey(int(data["seed"]))
     ch = MeshChannel(mode, mesh, wspecs=wspecs)
-    g_bar, h, h_bar, bits = jax.jit(lambda k, g, h, hb: rule.round(
-        q, k, g, h, hb, ch))(key, nest(tree("g/")), nest(tree("h/")),
-                             nest(tree("hb/")))
-    out = {"bits": np.asarray(bits)}
-    for name, t in (("g_bar", g_bar), ("h", h), ("h_bar", h_bar)):
-        for k, v in zip(names, jax.tree_util.tree_leaves(t)):
-            out[name + "/" + k] = np.asarray(v)
+    out = {}
     k_msg, _, k_agg = jax.random.split(key, 3)
+    for codec in codecs.split(","):     # each message codec's round
+        q = make_compressor(codec)
+        g_bar, h, h_bar, bits = jax.jit(lambda k, g, h, hb: rule.round(
+            q, k, g, h, hb, ch))(key, nest(tree("g/")), nest(tree("h/")),
+                                 nest(tree("hb/")))
+        out[codec + ":bits"] = np.asarray(bits)
+        for name, t in (("g_bar", g_bar), ("h", h), ("h_bar", h_bar)):
+            for k, v in zip(names, jax.tree_util.tree_leaves(t)):
+                out[f"{codec}:{name}/{k}"] = np.asarray(v)
+        for i, k in enumerate(names):
+            shape = data["hb/" + k].shape
+            d = int(np.prod(shape))
+            _, kq = jax.random.split(jax.random.fold_in(k_msg, i))
+            mshape = (q8_layout(d)[2], 128) if codec == "q8_block" else shape
+            for j, wk in enumerate(jax.random.split(kq, w)):
+                out[f"{codec}:m/{i}/{j}"] = np.asarray(
+                    jax.random.uniform(wk, mshape))
     for i, k in enumerate(names):
         shape = data["hb/" + k].shape
-        d = int(np.prod(shape))
-        _, kq = jax.random.split(jax.random.fold_in(k_msg, i))
-        mshape = (q8_layout(d)[2], 128) if codec == "q8_block" else shape
-        for j, wk in enumerate(jax.random.split(kq, w)):
-            out[f"m/{i}/{j}"] = np.asarray(jax.random.uniform(wk, mshape))
         sp = tuple(flat_specs[i])[1:]
         shard = tuple(s // 2 if a == "model" else s
                       for s, a in zip(shape, sp + (None,) * len(shape)))
@@ -218,13 +224,51 @@ def _run_reference(tmp_path, inputs, *argv):
     return dict(np.load(dst))
 
 
+def _pod_inputs(keys, like):
+    return {"seed": np.int64(17), "alpha": np.float64(ALPHA),
+            "paths": np.asarray(",".join(keys)), **_inputs(like, 5)}
+
+
+@pytest.fixture(scope="module")
+def pod_reference(tmp_path_factory):
+    """``get(mode)``: the reference's outputs and draws for ``mode``, both
+    message codecs (``MSG_CODEC`` and ``int8``) from one subprocess,
+    made once a mode."""
+    cache = {}
+
+    def get(mode):
+        if mode not in cache:
+            like = _smoke_names()
+            cache[mode] = _run_reference(
+                tmp_path_factory.mktemp(mode), _pod_inputs(list(like), like),
+                mode, f"{MSG_CODEC},int8")
+        return cache[mode]
+
+    return get
+
+
 @pytest.mark.parametrize("mode", ["q8_ring", "q8_ring_fused"])
-def test_pod_model_round_bitwise_vs_reference(mode, tmp_path):
+def test_pod_model_round_bitwise_vs_reference(mode, pod_reference):
+    _pod_model_round(mode, MSG_CODEC, pod_reference(mode))
+
+
+@pytest.mark.parametrize("mode", ["q8_ring", "q8_ring_fused"])
+def test_pod_model_round_int8_messages_bitwise_vs_reference(mode,
+                                                            pod_reference):
+    """The same round with ``Int8Stochastic`` messages, whose decode the
+    reference's local sums (2 rows a position) fuse in: one fma a
+    worker (``dist.collectives.with_payload_rows``)."""
+    _pod_model_round(mode, "int8", pod_reference(mode))
+
+
+def _pod_model_round(mode, msg_codec, ref):
     like = _smoke_names()
     keys = list(like)
-    inputs = {"seed": np.int64(17), "alpha": np.float64(ALPHA),
-              "paths": np.asarray(",".join(keys)), **_inputs(like, 5)}
-    out = _run_reference(tmp_path, inputs, mode, MSG_CODEC)
+    inputs = _pod_inputs(keys, like)
+    # the codec's round and message draws; the aggregation's draws and
+    # the shard shapes are the codec's too (one key chain)
+    out = {**ref, **{k[len(msg_codec) + 1:]: v for k, v in ref.items()
+                     if k.startswith(msg_codec + ":")}}
     n_leaves = len(keys)
     noise = KeyedReplay(
         msg={(i, j, "q"): out[f"m/{i}/{j}"] for i in range(n_leaves)
@@ -250,7 +294,7 @@ def test_pod_model_round_bitwise_vs_reference(mode, tmp_path):
                 for i, k in enumerate(keys)}
 
     g_bar, h, h_bar, bits = make_shift_rule("diana", alpha=ALPHA).round(
-        make_compressor(MSG_CODEC), noise, port("g/"), port("h/"),
+        make_compressor(msg_codec), noise, port("g/"), port("h/"),
         port("hb/"), MeshChannel(mode=mode, mesh=mesh, wspecs=wspecs))
     assert noise.done
     assert bits.dtype == torch.float32 and bits.item() == float(out["bits"])
@@ -443,46 +487,58 @@ def test_randk_shared_mean_contract():
                                    rtol=0, atol=tol)
 
 
-def test_int8_messages_sum_as_xla_fuses_them():
-    """A known difference, not a fault of this slice's code: DIANA with
-    ``Int8Stochastic`` messages, jitted, sums the workers' messages as
-    XLA fuses the decode into the reduction -- ``acc = fma(q_j, scale_j,
-    acc)``, worker by worker -- while the port's channel sums the decoded
-    messages (``q_j * scale_j`` rounded first).  The shifts (``h``, the
-    messages themselves) are bitwise; ``h_bar`` differs in the last bits
-    of some elements, and an fma chain over the payloads reproduces the
-    reference's exactly (ROADMAP queue 3)."""
+def _int8_round(w, channel, seed=0):
+    """DIANA with ``Int8Stochastic`` messages over ``w`` workers, the
+    reference's round jitted through ``channel`` (its SimChannel or its
+    dense MeshChannel) against the port's through the same channel,
+    the reference's message uniforms replayed by address.  Returns
+    ``(reference outputs, port outputs, replayed uniforms, inputs)``."""
+    from repro.comm.channel import MeshChannel as JaxMesh
     from repro.comm.channel import SimChannel as JaxSim
     from repro.core.compressors import Int8Stochastic as JaxInt8
     from repro.core.shift_rules import make_shift_rule as jax_rule
     from repro_torch.comm.channel import SimChannel
-    from repro_torch.kernels.q8ring.ref import fma_f32
 
-    rng = np.random.default_rng(0)
-    g = (rng.standard_normal((8, 2, 32)) * 0.02).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    g = (rng.standard_normal((w, 2, 32)) * 0.02).astype(np.float32)
     h = (0.5 * g[::-1] + rng.standard_normal(g.shape) * 1e-3).astype(
         np.float32)
     hb = h.mean(0)
     key = jax.random.PRNGKey(1)
+    jch, tch = ((JaxSim(), SimChannel()) if channel == "sim" else
+                (JaxMesh(mode="dense"), MeshChannel(mode="dense",
+                                                    mesh=HostMesh())))
     ref = jax.jit(lambda k, g, h, hb: jax_rule("diana", alpha=ALPHA).round(
-        JaxInt8(), k, {"a": g}, {"a": h}, {"a": hb}, JaxSim()))(key, g, h, hb)
+        JaxInt8(), k, {"a": g}, {"a": h}, {"a": hb}, jch))(key, g, h, hb)
     k_msg = jax.random.split(key, 3)[0]
     _, kq = jax.random.split(jax.random.fold_in(k_msg, 0))
     msg = {(0, j, "q"): np.asarray(jax.random.uniform(wk, (2, 32)))
-           for j, wk in enumerate(jax.random.split(kq, 8))}
+           for j, wk in enumerate(jax.random.split(kq, w))}
 
     def t(a):
         return {"a": torch.from_numpy(a.copy())}
 
-    _, h1, hb1, _ = make_shift_rule("diana", alpha=ALPHA).round(
-        Int8Stochastic(), KeyedReplay(msg=msg), t(g), t(h), t(hb),
-        SimChannel())
-    assert np.array_equal(_bits(h1["a"].numpy()), _bits(ref[1]["a"]))
+    noise = KeyedReplay(msg=msg)
+    got = make_shift_rule("diana", alpha=ALPHA).round(
+        Int8Stochastic(), noise, t(g), t(h), t(hb), tch)
+    assert noise.done
+    return ref, got, msg, (g, h, hb)
+
+
+def test_int8_messages_sum_as_xla_fuses_them():
+    """DIANA with ``Int8Stochastic`` messages, jitted, sums the workers'
+    messages as XLA fuses the decode into the reduction -- ``acc =
+    fma(q_j, scale_j, acc)``, worker by worker -- and so does the port's
+    channel (the messages carry their payloads,
+    ``dist.collectives.with_payload_rows``): ``g_bar``, ``h`` and
+    ``h_bar`` bitwise, and an fma chain over the payloads is the
+    reference's ``h_bar``."""
+    from repro_torch.kernels.q8ring.ref import fma_f32
+
+    ref, (g_bar, h1, hb1, _), msg, (g, h, hb) = _int8_round(8, "sim")
+    for got, want in ((g_bar, ref[0]), (h1, ref[1]), (hb1, ref[2])):
+        assert np.array_equal(_bits(got["a"].numpy()), _bits(want["a"]))
     want = _bits(ref[2]["a"])
-    off = int((_bits(hb1["a"].numpy()) != want).sum())
-    assert 0 < off < want.size
-    np.testing.assert_allclose(hb1["a"].numpy(), np.asarray(ref[2]["a"]),
-                               rtol=0, atol=1e-8)
     acc = None
     for j in range(8):
         p, _ = Int8Stochastic().encode(
@@ -492,3 +548,18 @@ def test_int8_messages_sum_as_xla_fuses_them():
                else fma_f32(p["q"], p["scale"], acc))
     fused = torch.from_numpy(hb) + ALPHA * (acc * np.float32(1 / 8))
     assert np.array_equal(_bits(fused.numpy()), want)
+
+
+@pytest.mark.parametrize("channel", ["sim", "mesh"])
+@pytest.mark.parametrize("w", [2, 8, 33])
+def test_int8_messages_mean_bitwise_vs_reference(w, channel):
+    """The worker mean of ``Int8Stochastic`` messages through the
+    parameter server and the dense ``MeshChannel``, bitwise the
+    reference's jitted round at W = 2, 8 and 33.  Up to 32 rows XLA
+    fuses the decode into the sum (one fma a worker); at 33 it sums the
+    rounded decodes in its windows of 32, and the port does the same."""
+    ref, got, _, _ = _int8_round(w, channel, seed=w)
+    for name, a, b in zip(("g_bar", "h", "h_bar"), got[:3], ref[:3]):
+        np.testing.assert_array_equal(_bits(a["a"].numpy()),
+                                      _bits(b["a"]), err_msg=name)
+    assert got[3].item() == float(ref[3])
