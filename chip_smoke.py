@@ -13,7 +13,8 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    seconds it took.
 3. Hold each q8 kernel bitwise against its plain PyTorch version on
    the card, at every layout the main paths give it (the codec's leaf
-   layouts of qwen3-0.6b and of rwkv6-3b; the ring's chunk layouts for
+   layouts of qwen3-0.6b, rwkv6-3b, qwen2-moe-a2.7b and the last three
+   families' paths of 9f; the ring's chunk layouts for
    4 positions, every chunk id), and time both with CUDA events (median
    of 20) at the largest qwen3-0.6b layout (the embedding's).  Hold the
    WKV6 forward and backward kernels against their plain versions
@@ -27,7 +28,8 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 3b. The q8 kernels at the layouts of the production layout and the MoE
    path (``phase_moe_pod_layouts``): the chunk quantize (both ids) and the
    accumulating dequant at every 2-position ring chunk of each
-   qwen2-moe-a2.7b leaf and of each ``model`` shard of each qwen3-0.6b
+   qwen2-moe-a2.7b leaf, of each leaf of 9f's paths and of each
+   ``model`` shard of each qwen3-0.6b
    leaf, the quantize and dequant at each shard's pod-stage tiles, all
    bitwise against the plain versions (the MoE leaf layouts themselves
    are phase 3's); each timed with its bound at the largest expert leaf
@@ -72,12 +74,18 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    (``q8_ring_fused_vjp`` with DIANA), all three with the q8 codec over
    the 4-position ring, and for ``vr_gdci`` + ``randk`` (Algorithm 2:
    the round mixes the params, AdamW is bypassed).  And for
-   qwen2-moe-a2.7b in ``q8_ring_fused`` with both its wires q8 (the
-   wires' int8 payloads recorded on both sides and their flips counted:
-   a flipped activation carries through the rest of the step, so with
-   flips the shares of shifts and params beyond f32 noise are bounded
-   by RARE_WIRED, each element still within its lattice bound) and for
-   llava-next-34b (its vision prefix) dense.
+   qwen2-moe-a2.7b and deepseek-v2-lite-16b in ``q8_ring_fused`` with
+   both their wires q8 (a flipped activation would carry through the
+   rest of the step, so the card runs first, and the CPU compares its
+   own encode of each wire send with the card's -- at most RARE_RING of
+   the int8 elements flipped, none by more than one step, every scale
+   within f32 noise -- and forwards the card's payloads: the rest of the
+   step is held to the bounds of 4; the same check is then shown to
+   catch a faulty card encode, one int8 row negated or one scale
+   doubled, ``phase_wire_rehearsal``), for llava-next-34b (its vision
+   prefix) dense, for
+   zamba2-1.2b in ``q8_ring_fused`` and for seamless-m4t-large-v2
+   dense.
 9. Three more full-size qwen3-0.6b paths, 3 steps each with the checks
    of 5: DIANA + ``natural`` + dense (the reference's default
    configuration), ``ef21`` + ``topk`` (q = 0.1) and ``rand_diana``
@@ -127,8 +135,27 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 9e. The dense 20-32B configs and the VLM at full width and
    CONFIG_LAYERS layer (``phase_configs``): internlm2-20b, qwen1.5-32b,
    qwen2.5-32b and llava-next-34b (seq 640: 576 prefix and 64 text
-   positions), one loss and backward each (finite), then 8 decode
+   positions), and seamless-m4t-large-v2 at full depth (24 + 24
+   layers), one loss and backward each (finite), then 8 decode
    ticks against the forward within DECODE_TOL.
+9f. The last three families at full width, each with the checks of 9d
+   (``MOE_W`` workers over ``HostMesh(data=MOE_W)``, ``q8_ring_fused``,
+   DIANA + ``q8_block``, batch 8, seq 128, one more round bitwise its
+   plain round, a breakdown step): deepseek-v2-lite-16b (MLA and MoE, 64
+   experts top-6 plus 2 shared) cut to DEEPSEEK_LAYERS = 2 of its 27
+   layers, its leading dense layer and one MoE layer (1,085,287,424
+   params in 29 leaves), both wires q8 (512 tokens a worker: one group
+   of capacity 64, an expert buffer (64, 64, 2048)); zamba2-1.2b at full
+   depth, 38 Mamba-2 layers and the shared attention block after every
+   6 (1,170,473,856 params in 21 leaves; seq 128 is one SSD chunk);
+   seamless-m4t-large-v2 cut to SEAMLESS_LAYERS = 6 decoder and 6
+   encoder layers (902,228,992 params in 26 leaves).  After each, its
+   decode against the forward (``phase_family_decode``): MLA's absorbed
+   decode against the expanded forward; zamba2 at 6 layers and one use
+   of the shared block, 128 ticks of the sequential scan against the
+   forward through one SSD chunk; seamless with its encoder keys and
+   values filled from each layer's ``cross_attention_kv`` of the
+   encoder's output.
 10. The entry points of the two kernels, ``shifted_natural(rand, g, h)``
    and ``block_topk(g, q=0.1)``, over all 13 full-size qwen3-0.6b
    leaves, with g worker 0's gradient of a fourth step of the natural
@@ -213,6 +240,14 @@ MOE_W = 2                   # its workers (and ring positions): at 4 one
                             # layer's state would not fit 80 GB
 CONFIG_LAYERS = 1           # the 20-34B configs' layers on the card
 CONFIG_BATCH, CONFIG_TICKS = 2, 8
+DEEPSEEK_LAYERS = 2         # deepseek-v2-lite-16b's 27 layers cut to its
+                            # leading dense layer and one MoE layer
+ZAMBA_LAYERS = 38           # zamba2-1.2b at full depth (cut, if at all, in
+                            # multiples of its attn_every = 6)
+SEAMLESS_LAYERS = 6         # seamless-m4t-large-v2's 24 + 24 layers cut to
+                            # 6 + 6: at full depth W = 2 workers' shifts and
+                            # AdamW would not fit 80 GB
+ZAMBA_DECODE_TICKS = 128    # zamba2's decode against one SSD chunk
 SLEEP_CYCLES = 1_000_000    # ~0.5 ms at the H100's clocks (time_ms)
 WKV_TOL = 1e-4              # rtol and atol of the WKV6 kernels vs plain
                             # (du: atol relative to its largest entry)
@@ -615,11 +650,12 @@ def _time_q8(K, plain, x, u, block):
     return out
 
 
-def phase_moe_pod_layouts(moe, qwen):
+def phase_moe_pod_layouts(moe, qwen, also=()):
     """The q8 kernels at the layouts of the MoE path and of the pod
     layout (phase 9c), bitwise against their plain versions: the chunk quantize (at
     both chunk ids) and the accumulating dequant at every 2-position
-    ring chunk -- of each leaf of ``moe`` (``HostMesh(data=2)``) and of
+    ring chunk -- of each leaf of ``moe`` and of the configs in ``also``
+    (the 2-worker paths over ``HostMesh(data=2)``) and of
     each ``model`` shard of each qwen3-0.6b leaf (``HostMesh(pod=2,
     data=2, model=2)``) -- and the quantize and the dequant (without and
     with an accumulator) at each shard's pod-stage tiles (the MoE leaf
@@ -646,8 +682,10 @@ def phase_moe_pod_layouts(moe, qwen):
         d = math.prod(like[k].shape)
         shard_d.append(d // 2 if any(a is not None for a in spec[1:]) else d)
     moe_d = {path: math.prod(shape) for path, shape, _ in param_specs(moe)}
+    two = [math.prod(shape) for c in also for _, shape, _ in param_specs(c)]
     chunks = sorted({ring_chunk_layout(d, 2)
-                     for d in list(moe_d.values()) + shard_d}, reverse=True)
+                     for d in list(moe_d.values()) + two + shard_d},
+                    reverse=True)
     tiles = sorted({(q8_layout(d)[2], q8_layout(d)[1]) for d in shard_d},
                    reverse=True)
     ids = torch.arange(2, dtype=torch.int32, device=dev)
@@ -1410,7 +1448,7 @@ def ring_tile_max(step, n, block_rows=64):
 
 
 def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
-                      wires=("none", "none")):
+                      wires=("none", "none"), card_fault=None):
     """One smoke-config step on the card and on the CPU, same state and
     uniforms: the GPU path (kernels, cuBLAS) against the plain CPU path.
 
@@ -1452,21 +1490,27 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
     by f32 rounding across a rounding boundary.  Such a wire flip moves
     one activation by a whole int8 step, which the rest of that worker's
     forward and backward carry: its gradients then differ far beyond f32
-    noise wherever the token reaches, and their q8 messages flip at a
-    share of the elements no longer rare (on the CPU, one side's params
-    perturbed by 1e-7 flipped 16 of 393,216 wire elements, then 0.75% of
-    the h elements and 1.05% of h_bar's through the ring; chip run 1:
-    0.19% of h).  So the wires' int8 payloads are recorded on both sides
-    and their flips counted; with none the bounds above hold, with some
-    the shifts' and params' shares are RARE_WIRED, every element still
-    within its lattice bound."""
+    noise wherever the token reaches (on the CPU, one side's params
+    perturbed by 1e-7 flipped 16 of 393,216 qwen2-moe wire elements, then
+    0.75% of the h elements and 1.05% of h_bar's through the ring; on
+    deepseek's smoke config 7.8% of h_bar and some h elements beyond their
+    lattice bound, up to twice it).  So the card runs first and its wire
+    payloads are recorded; the CPU encodes each send itself, holds it
+    against the card's (``wire_verdict``), and forwards the card's
+    payload, so the rest of the step is held to the bounds above.
+
+    ``card_fault(send, payload)``: alters the card's payload of each wire
+    send in place before it is recorded and forwarded (a faulty card
+    encode).  With it the step runs on both sides, and the wire
+    verdict ``(faults, stats)`` is returned unchecked, the rest not
+    compared (``phase_wire_rehearsal``)."""
     from repro_torch.comm import channel as CH
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
 
-    TIGHT, RARE, RARE_RING, RARE_WIRED = 1e-5, 1e-4, 1e-3, 5e-2
+    TIGHT, RARE, RARE_RING = 1e-5, 1e-4, 1e-3
     ring = ring_mode(comm_mode)
     cfg = get_smoke_config(arch).with_(dtype="float32")
     tcfg = _slice_configs(cfg, comm_mode, codec, rule, wires)
@@ -1482,9 +1526,9 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
     def on(tree, dev):   # a copy: h and h_bar are updated in place
         return {k: v.to(dev, copy=True) for k, v in tree.items()}
 
-    results, sent = [], []
+    results, sent, card_payloads = [], [], []
     encode = CH.encode_meta_free
-    for dev in ("cpu", "cuda"):
+    for dev in ("cuda", "cpu"):
         state = s0._replace(
             params=on(s0.params, dev),
             opt=type(s0.opt)(0, on(s0.opt.m, dev), on(s0.opt.v, dev)),
@@ -1493,10 +1537,17 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
         mesh = HostMesh(data=RING if ring else 1, device=dev)
         sent.append([])
 
-        def recorded(codec, rand, x, _sent=sent[-1]):   # the wires' sends
+        def recorded(codec, rand, x, _sent=sent[-1], dev=dev):  # wire sends
             payload = encode(codec, rand, x)
-            _sent.append(payload["q"].cpu())
-            return payload
+            if dev == "cuda" and card_fault is not None:
+                card_fault(len(_sent), payload)
+            _sent.append((payload["q"].cpu(), payload["scale"].cpu()))
+            if dev == "cuda":
+                card_payloads.append(payload)
+                return payload
+            # the CPU forwards the card's payload (its own only counted)
+            return {k: v.cpu() for k, v in
+                    card_payloads[len(_sent) - 1].items()}
 
         CH.encode_meta_free = recorded
         try:
@@ -1508,9 +1559,13 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
     check(len(sent[0]) == len(sent[1]),
           f"{what}: the sides sent {len(sent[0])} and {len(sent[1])} wire "
           f"payloads")
-    wire_flips = sum(int((a != b).sum()) for a, b in zip(*sent))
-    wire_elems = sum(a.numel() for a in sent[0])
-    (sc, mc), (sg, mg) = results
+    faults, wire = wire_verdict(*sent, TIGHT, RARE_RING)
+    if card_fault is not None:
+        return faults, wire
+    check(not faults, f"{what}: wire payloads, card against CPU: "
+                      + "; ".join(faults))
+    del card_payloads
+    (sg, mg), (sc, mc) = results
     check(mg["bits"].item() == mc["bits"].item(),
           f"{what}: bits differ")
     lc, lg = mc["loss"].item(), mg["loss"].item()
@@ -1540,8 +1595,6 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
             flipped += int((d > noise).sum())
             total += d.numel()
         share = RARE_RING if ring and name == "h_bar" else RARE
-        if wire_flips:
-            share = RARE_WIRED
         check(flipped <= share * total,
               f"{what}: {flipped} of {total} "
               f"{name} elements flipped")
@@ -1555,7 +1608,7 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
         total += d.numel()
     check(worst <= 2 * LR, f"{what}: params differ "
                            f"by {worst}")
-    check(off <= (RARE_WIRED if wire_flips else 1e-3) * total,
+    check(off <= 1e-3 * total,
           f"{what}: {off} of {total} params beyond "
           f"f32 noise")
     log(f"{what} (smoke config, 1 step, GPU vs CPU): "
@@ -1565,8 +1618,69 @@ def phase_cross_check(arch, comm_mode, codec="q8_block", rule="diana",
         f"bound: h {worst_share['h']:.3f}, h_bar {worst_share['h_bar']:.3f}"
         f"; params beyond f32 "
         f"noise {off} of {total}, max |diff| {worst:.3e}"
-        + (f"; wire int8 payloads flipped {wire_flips} of {wire_elems} "
-           f"({len(sent[0])} sends)" if sent[0] else ""))
+        + (f"; wire int8 payloads flipped {wire['flips']} of "
+           f"{wire['elems']}, largest scale |diff| / the send's largest "
+           f"{wire['scale_off']:.3e} ({len(sent[0])} sends; the CPU "
+           f"forwarded the card's)" if sent[0] else ""))
+
+
+def wire_verdict(card, cpu, tight, rare):
+    """The card's wire payloads against the CPU's own encode of the same
+    sends, each send ``(q, scale)`` on the host.  Both sides quantize the
+    same activations up to f32 rounding with the same uniforms, so an
+    int8 element may round to the neighbouring step (a flip), at most
+    ``rare`` of them, and a scale (``Int8Stochastic``'s: the send's
+    largest magnitude over 127) may differ by f32 noise, at most
+    ``tight`` times the send's largest scale.  Returns ``(faults,
+    stats)``: the bounds broken, as text."""
+    flips = elems = jump = 0
+    scale_off = 0.0
+    for (qa, sa), (qb, sb) in zip(card, cpu):
+        d = (qa.int() - qb.int()).abs()
+        flips += int((d != 0).sum())
+        elems += d.numel()
+        jump = max(jump, int(d.max()))
+        big = sb.abs().max().item()
+        scale_off = max(scale_off,
+                        (sa - sb).abs().max().item() / big if big else
+                        float((sa != sb).any()))
+    faults = []
+    if jump > 1:
+        faults.append(f"an int8 element {jump} steps off (a flip is one)")
+    if flips > rare * elems:
+        faults.append(f"{flips} of {elems} int8 elements differ")
+    if scale_off > tight:
+        faults.append(f"a scale off by {scale_off:.3e} of its send's "
+                      f"largest")
+    return faults, dict(flips=flips, elems=elems, jump=jump,
+                        scale_off=scale_off)
+
+
+#: faulty card encodes of the wire sends, each applied to the first send
+#: (a row: d_model int8 elements, the last axis)
+WIRE_FAULTS = {
+    "one int8 row negated":
+        lambda i, p: i == 0 and p["q"].view(-1, p["q"].shape[-1])[0].neg_(),
+    "its scale doubled": lambda i, p: i == 0 and p["scale"].mul_(2),
+}
+
+
+def phase_wire_rehearsal(arch):
+    """The wired cross-check of ``arch`` (``q8_ring_fused``, both wires
+    q8) with each of ``WIRE_FAULTS`` in the card's encode: the CPU
+    forwards the card's payloads, so the rest of its step carries the
+    fault too, and only the wire verdict can see it.  Each fault must
+    break one of its bounds."""
+    for name, fault in WIRE_FAULTS.items():
+        faults, wire = phase_cross_check(arch, "q8_ring_fused",
+                                         wires=("q8", "q8"),
+                                         card_fault=fault)
+        check(faults, f"wire rehearsal {arch}, {name} in the card's "
+                      f"encode: the cross-check passed it ({wire})")
+        log(f"wire rehearsal {arch}, {name} in the card's encode: caught "
+            f"({'; '.join(faults)}; {wire['flips']} of {wire['elems']} "
+            f"int8 elements differ, the largest by {wire['jump']}; "
+            f"scale off {wire['scale_off']:.3e})")
 
 
 RANDK_Q = 0.1               # keep fraction of the randk codec (its default)
@@ -2212,13 +2326,26 @@ SMOKE_DELTA_BYTES = {"dense": 1444864.0, "q8": 361268.0,
 SMOKE_SYNC_BYTES, SMOKE_GRAD_BYTES = 406368.0, 1444864.0
 
 
-def decode_logits(cfg, params, tokens):
+def decode_logits(cfg, params, tokens, frames=None):
     """Teacher-forced decode of ``tokens`` (B, T) through a cache of T
-    slots: every position's logits, (B, T, V)."""
+    slots: every position's logits, (B, T, V).  For an encoder-decoder,
+    ``frames`` (B, S_src, D): the state's encoder keys and values
+    (``xkv``) are each decoder layer's ``cross_attention_kv`` of the
+    encoder's output over them."""
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
-    state = M.make_decode_state(cfg, tokens.shape[0], tokens.shape[1],
-                                tokens.device)
+    state = M.make_decode_state(
+        cfg, tokens.shape[0], tokens.shape[1], tokens.device,
+        enc_len=0 if frames is None else frames.shape[1])
+    if frames is not None:
+        enc = M._encode(params, M._family(cfg), cfg, {"frames": frames})
+        for layer, p in enumerate(M._layers(params, "blocks/xattn/",
+                                            cfg.n_layers)):
+            k, v = L.cross_attention_kv(p, enc, cfg)
+            state["xkv/k"][layer] = k
+            state["xkv/v"][layer] = v
+        del enc
     out = []
     for t in range(tokens.shape[1]):
         logits, state = M.decode_step(params, cfg, tokens[:, t:t + 1], state,
@@ -2227,17 +2354,22 @@ def decode_logits(cfg, params, tokens):
     return torch.stack(out, 1)
 
 
-def check_decode_against_forward(what, cfg, params, tokens, fwd=None):
+def check_decode_against_forward(what, cfg, params, tokens, fwd=None,
+                                 frames=None):
     """Decode's logits at every position against the full-sequence
-    forward's on the same tokens (``fwd``, default ``forward_train``'s):
+    forward's on the same tokens (``fwd``, default ``forward_train``'s;
+    an encoder-decoder's over ``frames``, ``decode_logits``):
     |forward - decode| <= DECODE_TOL (1 + |decode|).  Returns the decode
     logits."""
     from repro_torch.models import model as M
 
     with torch.no_grad():
-        dec = decode_logits(cfg, params, tokens)
+        dec = decode_logits(cfg, params, tokens, frames)
         if fwd is None:
-            fwd, _ = M.forward_train(params, cfg, {"tokens": tokens})
+            batch = {"tokens": tokens}
+            if frames is not None:
+                batch["frames"] = frames
+            fwd, _ = M.forward_train(params, cfg, batch)
     err = (fwd - dec).abs()
     share = (err / (DECODE_TOL * (1 + dec.abs()))).max().item()
     check(share <= 1 and bool(torch.isfinite(dec).all()),
@@ -2338,22 +2470,74 @@ def live_publish_bits(codec, cfg):
     return bits.item()
 
 
+def phase_family_decode(cfg):
+    """Decode against the forward for one of the last three families at
+    full width, random params from seed 0, batch CONFIG_BATCH: ``cfg``'s
+    depth and CONFIG_TICKS ticks (deepseek-v2-lite-16b: MLA's absorbed
+    decode against its expanded forward; seamless-m4t-large-v2: the
+    encoder keys and values from the batch's frames), or for the hybrid
+    ``attn_every`` Mamba-2 layers and one use of the shared block over
+    ZAMBA_DECODE_TICKS ticks: the sequential scan, a tick at a time,
+    against the forward through one SSD chunk (its calls counted)."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import model as M
+
+    ticks = CONFIG_TICKS
+    if cfg.arch_type == "hybrid":
+        cfg, ticks = cfg.with_(n_layers=cfg.attn_every), ZAMBA_DECODE_TICKS
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, generator=gen, device="cuda")
+    batch = TokenStream(cfg, ticks, CONFIG_BATCH).batch(0, "cuda")
+    chunked, calls = M2._ssd_chunked, []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return chunked(*args, **kw)
+
+    M2._ssd_chunked = counted
+    try:
+        check_decode_against_forward(
+            f"decode {cfg.name} (full width, {cfg.n_layers} layers)", cfg,
+            params, batch["tokens"], frames=batch.get("frames"))
+    finally:
+        M2._ssd_chunked = chunked
+    if cfg.arch_type == "hybrid":
+        check(len(calls) == cfg.n_layers and all(
+            c[1] == M2.CHUNK for c in calls),
+            f"decode {cfg.name}: the forward ran {len(calls)} chunked SSD "
+            f"calls {calls[:2]}, expected one chunk a layer")
+    log(f"decode {cfg.name}: {ticks} ticks x {CONFIG_BATCH} rows"
+        + (f", the forward through {len(calls)} SSD chunks of {M2.CHUNK}"
+           if calls else "") + f"; {time.perf_counter() - t0:.1f} s")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
 def phase_configs():
     """The dense 20-32B configs and the VLM at full width, cut to
     CONFIG_LAYERS layer: internlm2-20b, qwen1.5-32b, qwen2.5-32b (seq
     SEQ) and llava-next-34b (seq 640: its 576 prefix positions and 64
-    text positions), batch CONFIG_BATCH, random params from seed 0.  Per
-    config one loss and backward, no optimizer state: loss and every
-    gradient finite; then CONFIG_TICKS teacher-forced decode ticks,
-    their logits against the forward's within DECODE_TOL (the VLM's
-    forward with an empty prefix: it decodes as the dense family)."""
+    text positions); and seamless-m4t-large-v2 at full depth (24 + 24
+    layers, seq SEQ over SEQ frames); batch CONFIG_BATCH, random params
+    from seed 0.  Per config one loss and backward, no optimizer state:
+    loss and every gradient finite; then CONFIG_TICKS teacher-forced
+    decode ticks, their logits against the forward's within DECODE_TOL
+    (the VLM's forward with an empty prefix: it decodes as the dense
+    family; the audio decoder with its encoder keys and values from the
+    batch's frames, ``decode_logits``)."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import model as M
 
-    for arch, seq in (("internlm2-20b", SEQ), ("qwen1.5-32b", SEQ),
-                      ("qwen2.5-32b", SEQ), ("llava-next-34b", 640)):
-        cfg = get_config(arch).with_(dtype="float32", n_layers=CONFIG_LAYERS)
+    cut = dict(n_layers=CONFIG_LAYERS)
+    for arch, seq, layers in (("internlm2-20b", SEQ, cut),
+                              ("qwen1.5-32b", SEQ, cut),
+                              ("qwen2.5-32b", SEQ, cut),
+                              ("llava-next-34b", 640, cut),
+                              ("seamless-m4t-large-v2", SEQ, {})):
+        cfg = get_config(arch).with_(dtype="float32", **layers)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2380,8 +2564,11 @@ def phase_configs():
                 fwd = M.forward_train(params, cfg, {
                     "tokens": text, "prefix": torch.zeros(
                         (CONFIG_BATCH, 0, cfg.d_model), device="cuda")})[0]
-        check_decode_against_forward(f"config {arch}", cfg, params, text, fwd)
-        log(f"config {arch} (full width, {cfg.n_layers} layer, "
+        check_decode_against_forward(f"config {arch}", cfg, params, text, fwd,
+                                     frames=batch.get("frames"))
+        depth = (f"{cfg.n_layers} + {cfg.n_enc_layers} encoder layers"
+                 if cfg.is_encoder_decoder else f"{cfg.n_layers} layer")
+        log(f"config {arch} (full width, {depth}, "
             f"{sum(p.numel() for p in params.values()):,} params, batch "
             f"{CONFIG_BATCH}, seq {seq}, tokens {tuple(batch['tokens'].shape)}"
             f"{', prefix ' + str(tuple(batch['prefix'].shape)) if 'prefix' in batch else ''}): "
@@ -2930,11 +3117,22 @@ def main(argv=None):
     rwkv = get_config("rwkv6-3b").with_(dtype="float32", n_layers=RWKV_LAYERS)
     moe = get_config("qwen2-moe-a2.7b").with_(dtype="float32",
                                               n_layers=MOE_LAYERS)
+    deepseek = get_config("deepseek-v2-lite-16b").with_(
+        dtype="float32", n_layers=DEEPSEEK_LAYERS)
+    zamba = get_config("zamba2-1.2b").with_(dtype="float32",
+                                            n_layers=ZAMBA_LAYERS)
+    seamless = get_config("seamless-m4t-large-v2").with_(
+        dtype="float32", n_layers=SEAMLESS_LAYERS,
+        n_enc_layers=SEAMLESS_LAYERS)
+    families = [(deepseek, ("q8", "q8")), (zamba, ("none", "none")),
+                (seamless, ("none", "none"))]
     phase_build()
-    kernels = (phase_kernels(qwen, also=(rwkv, moe))
+    kernels = (phase_kernels(qwen, also=(rwkv, moe, deepseek, zamba,
+                                         seamless))
                + [phase_ring_kernels(qwen)]
                + phase_wkv6_kernels(rwkv) + phase_natural_topk_kernels(qwen))
-    for k, rows in phase_moe_pod_layouts(moe, qwen).items():
+    for k, rows in phase_moe_pod_layouts(
+            moe, qwen, also=(deepseek, zamba, seamless)).items():
         next(r for r in kernels if r["name"] == k)["at_moe_pod_layouts"] = rows
     paths = [(qwen, "dense", "q8_block", "diana"),
              (qwen, "q8_ring_fused", "q8_block", "diana"),
@@ -2954,6 +3152,13 @@ def main(argv=None):
         phase_cross_check(cfg.name, mode, codec, rule)
     phase_cross_check(moe.name, "q8_ring_fused", wires=("q8", "q8"))
     phase_cross_check("llava-next-34b", "dense")
+    t0 = time.perf_counter()
+    phase_cross_check(deepseek.name, "q8_ring_fused", wires=("q8", "q8"))
+    phase_wire_rehearsal(deepseek.name)
+    phase_cross_check(zamba.name, "q8_ring_fused")
+    phase_cross_check(seamless.name, "dense")
+    log(f"the last three families' cross-checks: "
+        f"{time.perf_counter() - t0:.1f} s")
     by_path, digests = {}, {}
     for cfg, mode, codec, rule in paths + [efbv_ring] + overlap_paths:
         name = f"{cfg.name} {mode} {codec}" + (
@@ -3019,6 +3224,20 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_configs()
     log(f"the configs phase: {time.perf_counter() - t0:.1f} s")
+    # the last three families at full width, cut in depth, over the ring
+    for cfg, wires in families:
+        t0 = time.perf_counter()
+        name = f"{cfg.name} q8_ring_fused q8_block" + (
+            "" if wires == ("none", "none") else
+            f" moe_wire={wires[0]} act_wire={wires[1]}")
+        by_path[name], _, _ = phase_main_path(
+            cfg, "q8_ring_fused", mesh_kw=dict(data=MOE_W), plain_round=True,
+            w=MOE_W, wires=wires)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        phase_family_decode(cfg)
+        log(f"the {cfg.name} path: {t1 - t0:.1f} s, its decode "
+            f"{time.perf_counter() - t1:.1f} s")
     by_path["qwen3-0.6b codecs"] = phase_codecs(qwen)
     by_path["qwen3-0.6b dense natural_dithering"], _, _ = phase_main_path(
         qwen, "dense", "natural_dithering")

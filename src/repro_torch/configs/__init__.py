@@ -1,10 +1,13 @@
 """Architecture registry: ``--arch <id>`` resolves here.  The port
 registers the architectures it runs: the dense family (qwen3-0.6b,
 internlm2-20b, qwen1.5-32b, qwen2.5-32b), the vision-prefix VLM
-(llava-next-34b), the MoE family (qwen2-moe-a2.7b) and RWKV-6
-(rwkv6-3b)."""
+(llava-next-34b), the MoE family (qwen2-moe-a2.7b; deepseek-v2-lite-16b
+with multi-head latent attention), RWKV-6 (rwkv6-3b), the Mamba-2 hybrid
+(zamba2-1.2b) and the audio encoder-decoder (seamless-m4t-large-v2): the
+reference's ten."""
 
 from repro_torch.configs import (
+    deepseek_v2_lite_16b,
     internlm2_20b,
     llava_next_34b,
     qwen2_moe_a27b,
@@ -12,17 +15,22 @@ from repro_torch.configs import (
     qwen15_32b,
     qwen25_32b,
     rwkv6_3b,
+    seamless_m4t_large_v2,
+    zamba2_12b,
 )
 from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
 
-_MODULES = {
-    "qwen3-0.6b": qwen3_06b,
-    "internlm2-20b": internlm2_20b,
-    "qwen1.5-32b": qwen15_32b,
-    "qwen2.5-32b": qwen25_32b,
-    "llava-next-34b": llava_next_34b,
-    "qwen2-moe-a2.7b": qwen2_moe_a27b,
+_MODULES = {     # the reference's order
     "rwkv6-3b": rwkv6_3b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+    "llava-next-34b": llava_next_34b,
+    "qwen2.5-32b": qwen25_32b,
+    "internlm2-20b": internlm2_20b,
+    "qwen3-0.6b": qwen3_06b,
+    "qwen1.5-32b": qwen15_32b,
+    "seamless-m4t-large-v2": seamless_m4t_large_v2,
+    "qwen2-moe-a2.7b": qwen2_moe_a27b,
+    "zamba2-1.2b": zamba2_12b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,7 +1,7 @@
 """Deterministic synthetic token streams for LM training.
 
-The port of the reference's ``repro/data/tokens.py`` (text and the
-vision-prefix stub): the same Markov-ish stream ``x_{t+1} = (31 * x_t + n_t) mod V`` with a
+The port of the reference's ``repro/data/tokens.py`` (text, the
+vision-prefix stub and the audio frames stub): the same Markov-ish stream ``x_{t+1} = (31 * x_t + n_t) mod V`` with a
 uniform start token and noise ``n_t`` in [0, 97), drawn from a
 ``torch.Generator`` seeded from ``(seed, step)`` -- so every batch is a
 pure function of its step.  The draws are torch's: for the same seed the
@@ -39,12 +39,10 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, seq_len: int,
     modality the batch holds ``prefix`` too, the stub of the projected
     patch embeddings, (batch, num_prefix_tokens, d_model) f32 normals
     times 0.02, and the text fills the rest of the sequence: ``text_len
-    = max(2, seq_len - num_prefix_tokens)``."""
-    if cfg.modality == "audio_frames" or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "the audio frontend comes with its architecture: ROADMAP "
-            "queue 1, item 9f (audio encoder-decoder)"
-        )
+    = max(2, seq_len - num_prefix_tokens)``.  For an encoder-decoder it
+    holds ``frames`` too, the stub of the audio frontend's frame
+    embeddings, (batch, seq_len, d_model) f32 normals times 0.02, drawn
+    after the tokens."""
     v = cfg.vocab_size
     text_len = seq_len
     if cfg.modality == "vision_prefix":
@@ -59,5 +57,9 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, seq_len: int,
     if cfg.modality == "vision_prefix":
         out["prefix"] = (torch.randn(
             (batch, cfg.num_prefix_tokens, cfg.d_model), generator=gen,
+            dtype=torch.float32) * 0.02).to(device)
+    if cfg.is_encoder_decoder:
+        out["frames"] = (torch.randn(
+            (batch, seq_len, cfg.d_model), generator=gen,
             dtype=torch.float32) * 0.02).to(device)
     return out

@@ -25,7 +25,10 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \\
 ``ARCH`` is any id of ``repro_torch.configs.ARCH_IDS``: qwen3-0.6b,
 internlm2-20b, qwen1.5-32b, qwen2.5-32b, llava-next-34b (its text
 decoder: the vision prefix is a training-time input), qwen2-moe-a2.7b
-(the ``kv_moe`` caches) or rwkv6-3b.
+(the ``kv_moe`` caches), deepseek-v2-lite-16b (MLA's latent caches),
+rwkv6-3b, zamba2-1.2b (the Mamba-2 states and the shared block's caches)
+or seamless-m4t-large-v2 (its decoder over ``prompt_len`` zero encoder
+positions, as the reference's CLI).
 """
 
 from __future__ import annotations
@@ -116,14 +119,16 @@ def broadcast_params(params, compressor: str = "identity", *, noise=None,
     return channel.broadcast(q, noise, params)
 
 
-def greedy_decode(cfg: ModelConfig, params, batch: int, ticks: int, device):
+def greedy_decode(cfg: ModelConfig, params, batch: int, ticks: int, device,
+                  enc_len: int = 0):
     """Batched greedy decode for ``ticks`` ticks from one random token a
     row (drawn on the CPU from seed 1), through a cache of ``ticks``
-    slots.  Returns ``(tokens (B, 1 + ticks), seconds)``: the first
+    slots (an encoder-decoder's state with ``enc_len`` zero encoder
+    positions, as the reference's CLI has it).  Returns ``(tokens (B, 1 + ticks), seconds)``: the first
     token, then each tick's greedy token; the loop's seconds on the host
     clock, synchronised.  The next tokens stay on the device: a tick
     never waits for the one before."""
-    state = M.make_decode_state(cfg, batch, ticks, device)
+    state = M.make_decode_state(cfg, batch, ticks, device, enc_len=enc_len)
     step = build_serve_step(cfg)
     toks = torch.randint(0, cfg.vocab_size, (batch, 1),
                          generator=torch.Generator().manual_seed(1)
@@ -214,7 +219,9 @@ def main(argv: Optional[list] = None):
     print(f"model broadcast [{args.broadcast_compressor}]: "
           f"{float(bits) / 8e6:.2f} MB on the wire")
     ticks = args.prompt_len + args.gen_len
-    tokens, dt = greedy_decode(cfg, params, args.batch, ticks, device)
+    enc_len = args.prompt_len if cfg.is_encoder_decoder else 0
+    tokens, dt = greedy_decode(cfg, params, args.batch, ticks, device,
+                               enc_len=enc_len)
     total = args.batch * ticks
     print(f"{args.arch}: {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s batched greedy, "

@@ -1,9 +1,11 @@
-"""Transformer substrate for the dense decoder: norms, RoPE, grouped-query
-attention, SwiGLU MLP, embeddings, the tied head, cross-entropy.
+"""Transformer substrate: norms, RoPE, grouped-query attention,
+cross-attention, SwiGLU MLP, embeddings, the tied head, cross-entropy.
 
-The port of the dense subset of the reference's ``repro/models/layers.py``,
-function by function and in the same layouts: x (B, S, D); q (B, S, H, Dh);
-k/v (B, S, KV, Dh); projection weights 2-D (d, H*dh).  Parameters are
+The port of the reference's ``repro/models/layers.py`` (but its unused
+``attention_prefill`` and ``cross_attention_apply``'s ``enc_valid``,
+which no caller sets), function by function and in the same layouts:
+x (B, S, D); q (B, S, H, Dh); k/v (B, S, KV, Dh); projection weights 2-D
+(d, H*dh).  Parameters are
 passed as dicts keyed by the reference's names relative to the layer
 (``"wq"``, ``"q_norm/scale"``, ...).  Attention is written out as
 matmul + softmax, as the reference writes it.
@@ -205,6 +207,42 @@ def make_attention_cache(cfg: ModelConfig, b: int, cache_len: int, dtype,
                            device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+# --------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# --------------------------------------------------------------------------
+
+
+def cross_attention_specs(cfg: ModelConfig):
+    """(relative path, shape, init) of one cross-attention layer, the
+    reference's ``init_cross_attention``: its ``wo`` std by
+    ``cfg.n_layers``, as the reference's."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return [("wq", (d, h * dh), 0.02), ("wk", (d, kv * dh), 0.02),
+            ("wv", (d, kv * dh), 0.02),
+            ("wo", (h * dh, d), 0.02 / math.sqrt(2 * cfg.n_layers))]
+
+
+def cross_attention_kv(p, enc_out, cfg: ModelConfig):
+    """The encoder output's keys and values, (B, S_src, KV, Dh) each."""
+    b, s, _ = enc_out.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    return ((enc_out @ p["wk"]).reshape(b, s, kv, dh),
+            (enc_out @ p["wv"]).reshape(b, s, kv, dh))
+
+
+def cross_attention_apply(p, x, kv_pair, cfg: ModelConfig):
+    """Queries of ``x`` over the encoder's ``(k, v)``, not causal; every
+    encoder position is attended to."""
+    k, v = kv_pair
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    out = chunked_attention(q, k, v, causal=False, q_offset=0,
+                            k_positions=torch.arange(k.shape[1],
+                                                     device=x.device),
+                            q_chunk=cfg.attn_q_chunk)
+    return _out_proj(out, p["wo"])
 
 
 # --------------------------------------------------------------------------

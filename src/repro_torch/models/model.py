@@ -1,17 +1,26 @@
-"""LM assembly -- the dense, vlm (dense blocks behind a vision prefix),
-moe and ssm (RWKV-6) paths of the reference's ``repro/models/model.py``:
+"""LM assembly -- every architecture family of the reference's
+``repro/models/model.py``:
 
     init_params(cfg, generator=, device=)  -> params
     forward_train(params, cfg, batch[, wires, wire_noise]) -> (logits, aux)
     train_loss(params, cfg, batch[, ...])  -> (loss, metrics)
-    make_decode_state(cfg, b, cache_len, device) -> state
+    make_decode_state(cfg, b, cache_len, device[, enc_len]) -> state
     decode_step(params, cfg, tok, state, pos)    -> (logits, state)
     count_params_analytic(cfg)             -> int
 
-A family is one or more homogeneous stacks of blocks (``_Stack``): the
-dense family and the VLM one stack ``blocks``, the MoE family
-``dense_blocks`` (its ``first_dense_layers``) then ``moe_blocks``, RWKV-6
-one stack ``blocks``.
+A family (``_Family``) is its stacks of blocks (``_Stack``: the params'
+layout and the decode state's) and its walk: the blocks the residual
+stream runs through, in order, each a layer of a stack.  The dense
+family and the VLM walk one stack ``blocks``; the MoE family
+``dense_blocks`` (its ``first_dense_layers``) then ``moe_blocks``; RWKV-6
+``blocks``; the hybrid (Zamba2) its Mamba-2 ``blocks`` in segments of
+``attn_every`` with ONE shared attention block (``shared_attn``, leaves
+not stacked) after each whole segment; the audio encoder-decoder its
+decoder ``blocks``, each with cross-attention to the encoder's output
+(the family's encoder, ``enc_blocks`` over the ``frames``, run before
+the walk).  ``forward_train`` and ``decode_step`` both follow the walk.
+Attention is multi-head latent attention (``models/mla.py``) where
+``cfg.use_mla``, grouped-query attention elsewhere.
 
 Params are a flat dict ``{path: tensor}`` keyed by the reference's
 pytree path (``"blocks/mlp/w_up"``) and ordered as
@@ -23,20 +32,23 @@ boundaries, so per-layer parameters would change the wire format.  The
 forward pass unbinds each stacked leaf into per-layer views once.
 
 The decode state is a flat dict too, keyed by the reference's state
-paths (``"kv/k"``, ``"kv_moe/k"``, ``"blocks/wkv"``), its leaves stacked
-``(L, B, ...)`` per stack; ``decode_step`` updates it IN PLACE, layer by layer through
-views, and returns it.
+paths (``"kv/k"``, ``"kv_moe/ckv"``, ``"blocks/wkv"``, ``"shared_kv/k"``,
+``"xkv/k"``), its leaves stacked ``(L, B, ...)`` per stack (the shared
+block's per use); ``decode_step`` updates it IN PLACE, layer by layer
+through views, and returns it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 
@@ -45,35 +57,42 @@ Params = Dict[str, torch.Tensor]
 ONES, ZEROS = ("full", 1.0), ("full", 0.0)
 
 
-def _dense_block_specs(cfg: ModelConfig):
-    """(relative path, shape, init) of one dense block; init is a normal
-    std, or ``("full", value)``."""
-    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
-    specs = [
-        ("attn/wq", (d, h * dh), 0.02),
-        ("attn/wk", (d, kv * dh), 0.02),
-        ("attn/wv", (d, kv * dh), 0.02),
-        ("attn/wo", (h * dh, d), out_std),
-        ("attn_norm/scale", (d,), ONES),
-        ("mlp_norm/scale", (d,), ONES),
-        ("mlp/w_gate", (d, f), 0.02),
-        ("mlp/w_up", (d, f), 0.02),
-        ("mlp/w_down", (f, d), out_std),
-    ]
+# --------------------------------------------------------------------------
+# Blocks: (relative path, shape, init) of one block; init is a normal std,
+# ``moe.F32Normal``, ``("full", value)`` or ``mamba2.F32Init``
+# --------------------------------------------------------------------------
+
+
+def _attn_specs(cfg: ModelConfig):
+    """One self-attention layer: MLA where ``cfg.use_mla``, else
+    grouped-query attention."""
+    if cfg.use_mla:
+        return MLA.mla_specs(cfg)
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = [("wq", (d, h * dh), 0.02),
+             ("wk", (d, kv * dh), 0.02),
+             ("wv", (d, kv * dh), 0.02),
+             ("wo", (h * dh, d), 0.02 / math.sqrt(2 * cfg.n_layers))]
     if cfg.qkv_bias:
-        specs += [("attn/bq", (h * dh,), ZEROS),
-                  ("attn/bk", (kv * dh,), ZEROS),
-                  ("attn/bv", (kv * dh,), ZEROS)]
+        specs += [("bq", (h * dh,), ZEROS), ("bk", (kv * dh,), ZEROS),
+                  ("bv", (kv * dh,), ZEROS)]
     if cfg.qk_norm:
-        specs += [("attn/q_norm/scale", (dh,), ONES),
-                  ("attn/k_norm/scale", (dh,), ONES)]
+        specs += [("q_norm/scale", (dh,), ONES), ("k_norm/scale", (dh,), ONES)]
     return specs
 
 
+def _dense_block_specs(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return [*((f"attn/{n}", sh, i) for n, sh, i in _attn_specs(cfg)),
+            ("attn_norm/scale", (d,), ONES),
+            ("mlp_norm/scale", (d,), ONES),
+            ("mlp/w_gate", (d, f), 0.02),
+            ("mlp/w_up", (d, f), 0.02),
+            ("mlp/w_down", (f, d), out_std)]
+
+
 def _rwkv_block_specs(cfg: ModelConfig):
-    """(relative path, shape, init) of one RWKV-6 block."""
     d = cfg.d_model
     return [("ln1/scale", (d,), ONES), ("ln2/scale", (d,), ONES),
             *((f"time/{n}", s, i) for n, s, i in R6.time_mix_specs(cfg)),
@@ -81,17 +100,31 @@ def _rwkv_block_specs(cfg: ModelConfig):
 
 
 def _moe_block_specs(cfg: ModelConfig):
-    """(relative path, shape, init) of one MoE block: attention, its
-    norms and the MoE FFN (``models/moe.py``)."""
+    """Attention, its norms and the MoE FFN (``models/moe.py``)."""
     return [s for s in _dense_block_specs(cfg) if not s[0].startswith("mlp/")
             ] + [(f"moe/{n}", sh, i) for n, sh, i in MOE.moe_specs(cfg)]
+
+
+def _mamba_block_specs(cfg: ModelConfig):
+    return [("norm/scale", (cfg.d_model,), ONES),
+            *((f"m2/{n}", s, i) for n, s, i in M2.mamba2_specs(cfg))]
+
+
+def _xattn_block_specs(cfg: ModelConfig):
+    """The audio decoder's block: a dense block with cross-attention."""
+    return _dense_block_specs(cfg) + [
+        ("xattn_norm/scale", (cfg.d_model,), ONES),
+        *((f"xattn/{n}", s, i) for n, s, i in L.cross_attention_specs(cfg))]
 
 
 def param_specs(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...], object]]:
     """Every leaf ``(path, shape, init)`` in the reference's flatten order
     (a stack of no layers has no leaves, as the reference's ``None``)."""
-    specs = [(st.prefix + name, (st.n, *shape), init)
-             for st in _family(cfg)(cfg) if st.n > 0
+    fam = _family(cfg)
+    stacks = fam.stacks + ([fam.encoder] if fam.encoder is not None else [])
+    specs = [(st.prefix + name, shape if st.n is None else (st.n, *shape),
+              init)
+             for st in stacks if st.n != 0
              for name, shape, init in st.specs(cfg)]
     specs += [("embed/table", (cfg.vocab_size, cfg.d_model), 0.02),
               ("final_norm/scale", (cfg.d_model,), ONES)]
@@ -107,8 +140,9 @@ def leaf_paths(cfg: ModelConfig) -> List[str]:
 
 def leaf_dtype(cfg: ModelConfig, init) -> torch.dtype:
     """A leaf's dtype: the model's, or f32 for ``moe.F32Normal`` (the
-    router)."""
-    if isinstance(init, MOE.F32Normal):
+    router) and ``mamba2.F32Init`` (Mamba-2's ``a_log``, ``dt_bias``,
+    ``d_skip``)."""
+    if isinstance(init, (MOE.F32Normal, M2.F32Init)):
         return torch.float32
     return getattr(torch, cfg.dtype)
 
@@ -121,7 +155,11 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     params = {}
     for path, shape, init in param_specs(cfg):
         dtype = leaf_dtype(cfg, init)
-        if isinstance(init, tuple):
+        if isinstance(init, tuple) and init[0] == "log_linspace":
+            t = torch.log(torch.linspace(
+                init[1], init[2], shape[-1], dtype=torch.float32,
+                device=device)).to(dtype).expand(shape).contiguous()
+        elif isinstance(init, tuple):
             t = torch.full(shape, init[1], dtype=dtype, device=device)
         else:
             t = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -134,21 +172,55 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     return sum(math.prod(shape) for _, shape, _ in param_specs(cfg))
 
 
-def _dense_block_fwd(p, x, cfg: ModelConfig, moe=None):
-    x = x + L.attention_apply(_sub(p, "attn/"),
-                              L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
-                              cfg)
-    x = x + L.mlp_apply(_sub(p, "mlp/"),
-                        L.rmsnorm(p["mlp_norm/scale"], x, cfg.norm_eps))
-    return x, None
+# --------------------------------------------------------------------------
+# Blocks: training forward (p, x, cfg, moe=, enc=) -> (x, aux or None) and
+# decode (p, x, cfg, state entry, pos) -> x, the state updated in place
+# --------------------------------------------------------------------------
 
 
-def _moe_block_fwd(p, x, cfg: ModelConfig, moe=None):
+def _attn_apply(p, x, cfg: ModelConfig):
+    if cfg.use_mla:
+        return MLA.mla_apply(p, x, cfg)
+    return L.attention_apply(p, x, cfg)
+
+
+def _attn_decode(p, x, cfg: ModelConfig, cache, pos: int):
+    if cfg.use_mla:
+        return MLA.mla_decode(p, x, cfg, cache, pos, window=cfg.sliding_window)
+    return L.attention_decode(p, x, cfg, cache, pos)
+
+
+def _attn_state(cfg, b, cache_len, enc_len, dtype, device):
+    if cfg.use_mla:
+        return MLA.make_mla_cache(cfg, b, cache_len, dtype, device)
+    return L.make_attention_cache(cfg, b, cache_len, dtype, device)
+
+
+def _self_attn(p, x, cfg: ModelConfig):
+    return x + _attn_apply(_sub(p, "attn/"),
+                           L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
+                           cfg)
+
+
+def _self_attn_decode(p, x, cfg: ModelConfig, cache, pos: int):
+    return x + _attn_decode(_sub(p, "attn/"),
+                            L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
+                            cfg, cache, pos)
+
+
+def _mlp(p, x, cfg: ModelConfig):
+    return x + L.mlp_apply(_sub(p, "mlp/"),
+                           L.rmsnorm(p["mlp_norm/scale"], x, cfg.norm_eps))
+
+
+def _dense_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
+    return _mlp(p, _self_attn(p, x, cfg), cfg), None
+
+
+def _moe_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
     """``moe``: None, or ``(wire, draw)`` of the moe wire for this layer
     (``draw(group, part)``)."""
-    x = x + L.attention_apply(_sub(p, "attn/"),
-                              L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
-                              cfg)
+    x = _self_attn(p, x, cfg)
     wire, draw = (None, None) if moe is None else moe
     y, aux = MOE.moe_apply(_sub(p, "moe/"),
                            L.rmsnorm(p["mlp_norm/scale"], x, cfg.norm_eps),
@@ -156,7 +228,7 @@ def _moe_block_fwd(p, x, cfg: ModelConfig, moe=None):
     return x + y, aux
 
 
-def _rwkv_block_fwd(p, x, cfg: ModelConfig, moe=None):
+def _rwkv_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
     x = x + R6.time_mix_apply(_sub(p, "time/"),
                               L.rmsnorm(p["ln1/scale"], x, cfg.norm_eps), cfg)
     x = x + R6.channel_mix_apply(_sub(p, "channel/"),
@@ -164,19 +236,48 @@ def _rwkv_block_fwd(p, x, cfg: ModelConfig, moe=None):
     return x, None
 
 
+def _mamba_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
+    y, _ = M2.mamba2_apply(_sub(p, "m2/"),
+                           L.rmsnorm(p["norm/scale"], x, cfg.norm_eps), cfg)
+    return x + y, None
+
+
+def _cross_attn(p, x, cfg: ModelConfig, kv_pair):
+    return x + L.cross_attention_apply(
+        _sub(p, "xattn/"), L.rmsnorm(p["xattn_norm/scale"], x, cfg.norm_eps),
+        kv_pair, cfg)
+
+
+def _xattn_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
+    """The audio decoder's block over ``enc``, the encoder's output."""
+    x = _self_attn(p, x, cfg)
+    x = _cross_attn(p, x, cfg, L.cross_attention_kv(_sub(p, "xattn/"), enc,
+                                                    cfg))
+    return _mlp(p, x, cfg), None
+
+
+def _bidir_attn(p, x, cfg: ModelConfig):
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = L._qkv(p, x, cfg, pos.expand(b, s))
+    out = L.chunked_attention(q, k, v, causal=False, q_offset=0,
+                              k_positions=pos, q_chunk=cfg.attn_q_chunk)
+    return L._out_proj(out, p["wo"])
+
+
+def _encoder_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
+    """The audio encoder's block: a dense block, attention not causal."""
+    x = x + _bidir_attn(_sub(p, "attn/"),
+                        L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps), cfg)
+    return _mlp(p, x, cfg), None
+
+
 def _dense_block_decode(p, x, cfg: ModelConfig, cache, pos: int):
-    x = x + L.attention_decode(
-        _sub(p, "attn/"), L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
-        cfg, cache, pos)
-    x = x + L.mlp_apply(_sub(p, "mlp/"),
-                        L.rmsnorm(p["mlp_norm/scale"], x, cfg.norm_eps))
-    return x
+    return _mlp(p, _self_attn_decode(p, x, cfg, cache, pos), cfg)
 
 
 def _moe_block_decode(p, x, cfg: ModelConfig, cache, pos: int):
-    x = x + L.attention_decode(
-        _sub(p, "attn/"), L.rmsnorm(p["attn_norm/scale"], x, cfg.norm_eps),
-        cfg, cache, pos)
+    x = _self_attn_decode(p, x, cfg, cache, pos)
     y, _ = MOE.moe_apply(_sub(p, "moe/"),
                          L.rmsnorm(p["mlp_norm/scale"], x, cfg.norm_eps), cfg)
     return x + y
@@ -196,66 +297,169 @@ def _rwkv_block_decode(p, x, cfg: ModelConfig, st, pos: int):
     return x + y
 
 
+def _mamba_block_decode(p, x, cfg: ModelConfig, st, pos: int):
+    y, new = M2.mamba2_apply(_sub(p, "m2/"),
+                             L.rmsnorm(p["norm/scale"], x, cfg.norm_eps),
+                             cfg, st)
+    st["conv"].copy_(new["conv"])
+    st["ssm"].copy_(new["ssm"])
+    return x + y
+
+
+def _xattn_block_decode(p, x, cfg: ModelConfig, st, pos: int):
+    """``st``: the layer's self-attention cache under ``kv/``, the
+    encoder's keys and values under ``xkv/``."""
+    x = _self_attn_decode(p, x, cfg, _sub(st, "kv/"), pos)
+    x = _cross_attn(p, x, cfg, (st["xkv/k"], st["xkv/v"]))
+    return _mlp(p, x, cfg)
+
+
 def _sub(p: Params, prefix: str) -> Params:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def _rwkv_state(cfg, b, cache_len, dtype, device):
+def _rwkv_state(cfg, b, cache_len, enc_len, dtype, device):
     return R6.make_rwkv_state(cfg, b, dtype, device)
 
 
+def _mamba_state(cfg, b, cache_len, enc_len, dtype, device):
+    return M2.make_mamba2_state(cfg, b, dtype, device)
+
+
+def _xattn_state(cfg, b, cache_len, enc_len, dtype, device):
+    """The audio decoder's layer: its self-attention cache (``kv/``) and
+    the encoder's keys and values (``xkv/``, (B, enc_len, KV, Dh) zeros,
+    as the reference's; the caller fills them from the encoder)."""
+    shape = (b, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    return {**{f"kv/{k}": v for k, v in _attn_state(
+                cfg, b, cache_len, enc_len, dtype, device).items()},
+            "xkv/k": torch.zeros(shape, dtype=dtype, device=device),
+            "xkv/v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------
+# Families
+# --------------------------------------------------------------------------
+
+
 class _Stack(NamedTuple):
-    """One homogeneous stack of blocks, its leaves stacked ``(n, ...)``."""
+    """One homogeneous stack of blocks."""
     prefix: str          # the params' top-level key, "blocks/"
-    n: int               # its layers
+    n: Optional[int]     # its layers, each leaf stacked (n, ...); None:
+    #                      ONE block, its leaves not stacked (the shared
+    #                      attention block)
     specs: Callable      # cfg -> one block's (path, shape, init)
-    fwd: Callable        # (p, x, cfg, moe) -> (x, aux or None): training;
-    #                      moe: the moe wire and its draws, or None (a
-    #                      block without experts ignores it)
-    decode: Callable     # (p, x, cfg, layer state, pos) -> x, state in place
-    state_prefix: str    # the decode state's top-level key, "kv/"
-    state: Callable      # (cfg, b, cache_len, dtype, device) -> one
-    #                      layer's zero decode state
+    fwd: Callable        # (p, x, cfg, moe=, enc=) -> (x, aux or None):
+    #                      training; moe: the moe wire and its draws, or
+    #                      None (a block without experts ignores it); enc:
+    #                      the encoder's output, or None
+    decode: Optional[Callable] = None   # (p, x, cfg, state entry, pos) ->
+    #                      x, the state in place (None only for a
+    #                      family's encoder, which is not on the walk)
+    state_prefix: str = ""   # the decode state's top-level key, "kv/"
+    #                      ("": the entry's keys are whole paths; only a
+    #                      family's one stack)
+    state: Optional[Callable] = None    # (cfg, b, cache_len, enc_len,
+    #                      dtype, device) -> one entry's zero decode state
+    #                      (None only for a family's encoder)
 
 
-def _dense_stacks(cfg: ModelConfig) -> List[_Stack]:
-    return [_Stack("blocks/", cfg.n_layers, _dense_block_specs,
-                   _dense_block_fwd, _dense_block_decode, "kv/",
-                   L.make_attention_cache)]
+class _Family(NamedTuple):
+    stacks: List[_Stack]
+    #: the residual stream's blocks in the order they run: (stack, its
+    #: layer -- 0 for a block not stacked --, its decode state entry)
+    walk: List[Tuple[int, int, int]]
+    #: the stack run over the batch's ``frames`` before the walk, its
+    #: output the walk's ``enc`` (the audio encoder-decoder's encoder),
+    #: or None
+    encoder: Optional[_Stack] = None
 
 
-def _moe_stacks(cfg: ModelConfig) -> List[_Stack]:
+def _in_turn(stacks: List[_Stack], encoder: Optional[_Stack] = None
+             ) -> _Family:
+    """Every layer of each stack on the walk, the stacks one after the
+    other."""
+    return _Family(stacks, [(si, layer, layer)
+                            for si, st in enumerate(stacks)
+                            for layer in range(st.n)], encoder)
+
+
+def _dense_family(cfg: ModelConfig) -> _Family:
+    return _in_turn([_Stack("blocks/", cfg.n_layers, _dense_block_specs,
+                            _dense_block_fwd, _dense_block_decode, "kv/",
+                            _attn_state)])
+
+
+def _moe_family(cfg: ModelConfig) -> _Family:
     nd = cfg.first_dense_layers
-    return [_Stack("dense_blocks/", nd, _dense_block_specs, _dense_block_fwd,
-                   _dense_block_decode, "kv_dense/", L.make_attention_cache),
-            _Stack("moe_blocks/", cfg.n_layers - nd, _moe_block_specs,
-                   _moe_block_fwd, _moe_block_decode, "kv_moe/",
-                   L.make_attention_cache)]
+    return _in_turn([
+        _Stack("dense_blocks/", nd, _dense_block_specs, _dense_block_fwd,
+               _dense_block_decode, "kv_dense/", _attn_state),
+        _Stack("moe_blocks/", cfg.n_layers - nd, _moe_block_specs,
+               _moe_block_fwd, _moe_block_decode, "kv_moe/", _attn_state)])
 
 
-def _ssm_stacks(cfg: ModelConfig) -> List[_Stack]:
-    return [_Stack("blocks/", cfg.n_layers, _rwkv_block_specs,
-                   _rwkv_block_fwd, _rwkv_block_decode, "blocks/",
-                   _rwkv_state)]
+def _ssm_family(cfg: ModelConfig) -> _Family:
+    return _in_turn([_Stack("blocks/", cfg.n_layers, _rwkv_block_specs,
+                            _rwkv_block_fwd, _rwkv_block_decode, "blocks/",
+                            _rwkv_state)])
 
 
-#: the architecture families the port runs: each the stacks of its
-#: blocks, in the order the forward pass runs them
+def _zamba_segments(cfg: ModelConfig):
+    """[(n_mamba_layers, attn_after), ...] covering ``cfg.n_layers``: runs
+    of ``attn_every`` layers, the shared block after each whole run."""
+    segs, rest = [], cfg.n_layers
+    while rest > 0:
+        n = min(cfg.attn_every, rest)
+        segs.append((n, n == cfg.attn_every))
+        rest -= n
+    return segs
+
+
+def _hybrid_family(cfg: ModelConfig) -> _Family:
+    """Mamba-2 layers with ONE shared attention block after every
+    ``attn_every`` of them; each use of the block has its own cache
+    (``shared_kv``), and its gradient is the sum over the uses."""
+    stacks = [_Stack("blocks/", cfg.n_layers, _mamba_block_specs,
+                     _mamba_block_fwd, _mamba_block_decode, "blocks/",
+                     _mamba_state),
+              _Stack("shared_attn/", None, _dense_block_specs,
+                     _dense_block_fwd, _dense_block_decode, "shared_kv/",
+                     _attn_state)]
+    walk, off, uses = [], 0, 0
+    for n, attn_after in _zamba_segments(cfg):
+        walk += [(0, layer, layer) for layer in range(off, off + n)]
+        if attn_after:
+            walk.append((1, 0, uses))
+            uses += 1
+        off += n
+    return _Family(stacks, walk)
+
+
+def _audio_family(cfg: ModelConfig) -> _Family:
+    """The decoder's blocks over the tokens, the encoder (bidirectional
+    dense blocks) over the frames before them."""
+    return _in_turn(
+        [_Stack("blocks/", cfg.n_layers, _xattn_block_specs,
+                _xattn_block_fwd, _xattn_block_decode, "", _xattn_state)],
+        encoder=_Stack("enc_blocks/", cfg.n_enc_layers, _dense_block_specs,
+                       _encoder_block_fwd))
+
+
 _FAMILIES = {
-    "dense": _dense_stacks,
-    "vlm": _dense_stacks,     # dense blocks behind a vision prefix
-    "moe": _moe_stacks,
-    "ssm": _ssm_stacks,
+    "dense": _dense_family,
+    "vlm": _dense_family,     # dense blocks behind a vision prefix
+    "moe": _moe_family,
+    "ssm": _ssm_family,
+    "hybrid": _hybrid_family,
+    "audio": _audio_family,
 }
 
 
-def _family(cfg: ModelConfig) -> Callable[[ModelConfig], List[_Stack]]:
+def _family(cfg: ModelConfig) -> _Family:
     if cfg.arch_type not in _FAMILIES:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet: ROADMAP queue 1, "
-            f"item 9 (other architectures)"
-        )
-    return _FAMILIES[cfg.arch_type]
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
+    return _FAMILIES[cfg.arch_type](cfg)
 
 
 def _layers(tree: Params, prefix: str, n: int) -> List[Params]:
@@ -266,6 +470,20 @@ def _layers(tree: Params, prefix: str, n: int) -> List[Params]:
     return [{k: v[layer] for k, v in stacked.items()} for layer in range(n)]
 
 
+def _views(params: Params, st: _Stack) -> List[Params]:
+    """The params of each of a stack's layers (one for a block not
+    stacked)."""
+    if st.n is None:
+        return [_sub(params, st.prefix)]
+    return _layers(params, st.prefix, st.n)
+
+
+def _entries(fam: _Family, si: int) -> int:
+    """How many decode state entries stack ``si`` has: one a step of the
+    walk."""
+    return sum(1 for s, _, _ in fam.walk if s == si)
+
+
 def _embed_inputs(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Token embeddings, behind the vision prefix (B, P, D) for the
     ``vision_prefix`` modality."""
@@ -273,6 +491,17 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.modality == "vision_prefix":
         x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
     return x
+
+
+def _encode(params: Params, fam: _Family, cfg: ModelConfig, batch):
+    """The output of the family's encoder over the batch's ``frames``
+    (B, S_src, D), or None for a family without one."""
+    if fam.encoder is None:
+        return None
+    enc = batch["frames"].to(getattr(torch, cfg.dtype))
+    for p in _views(params, fam.encoder):
+        enc, _ = fam.encoder.fwd(p, enc, cfg)
+    return enc
 
 
 def forward_train(params: Params, cfg: ModelConfig, batch, wires=None,
@@ -286,25 +515,28 @@ def forward_train(params: Params, cfg: ModelConfig, batch, wires=None,
     ``act`` wire carries each block's output (``layers.wire_boundary``,
     its EF shift threaded across the layers of a stack), the ``moe`` wire the
     expert buffers of each MoE layer, keyed by the layer's global
-    index.  ``wires=None`` is the unwired path."""
+    index (its step on the walk).  ``wires=None`` is the unwired path."""
     act_wire = wires.get("act") if wires is not None else None
     moe_wire = wires.get("moe") if wires is not None else None
+    fam = _family(cfg)
     x = _embed_inputs(params, cfg, batch)
+    enc = _encode(params, fam, cfg, batch)
+    views = [_views(params, st) for st in fam.stacks]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    li = 0
-    for st in _family(cfg)(cfg):
-        # the act wire's EF shift starts at zero in each stack, as the
-        # reference's scan over the stack does
-        e = None if act_wire is None else torch.zeros_like(x)
-        for p in _layers(params, st.prefix, st.n):
-            moe = None if moe_wire is None else (
-                moe_wire, lambda g, part, li=li: wire_noise.moe(li, g, part))
-            x, a = st.fwd(p, x, cfg, moe)
-            if a is not None:
-                aux = aux + a
-            if act_wire is not None:
-                x, e = L.wire_boundary(act_wire, wire_noise.act(li), x, e)
-            li += 1
+    e, prev = None, None
+    for li, (si, layer, _) in enumerate(fam.walk):
+        if act_wire is not None and si != prev:
+            # the act wire's EF shift starts at zero in each stack, as the
+            # reference's scan over the stack does
+            e = torch.zeros_like(x)
+        prev = si
+        moe = None if moe_wire is None else (
+            moe_wire, lambda g, part, li=li: wire_noise.moe(li, g, part))
+        x, a = fam.stacks[si].fwd(views[si][layer], x, cfg, moe=moe, enc=enc)
+        if a is not None:
+            aux = aux + a
+        if act_wire is not None:
+            x, e = L.wire_boundary(act_wire, wire_noise.act(li), x, e)
     if cfg.arch_type == "vlm":
         x = x[:, batch["prefix"].shape[1]:]
     x = L.rmsnorm(params["final_norm/scale"], x, cfg.norm_eps)
@@ -339,20 +571,27 @@ def train_loss(params: Params, cfg: ModelConfig, batch, param_tap=None,
 
 
 def make_decode_state(cfg: ModelConfig, b: int, cache_len: int,
-                      device) -> Params:
+                      device, enc_len: int = 0) -> Params:
     """Zero decode state for ``b`` rows on ``device``, its leaves stacked
-    over each stack's layers: ``kv/{k,kpos,v}`` (a ring cache of
-    ``cache_len`` slots a row) for the dense family and the VLM,
-    ``kv_dense/...`` and ``kv_moe/...`` for the MoE family (a stack of
-    no layers keeps leaves of no layers, as the reference's),
-    ``blocks/{cm_last,tm_last,wkv}`` for RWKV-6."""
+    over each stack's entries, in the reference's flatten order:
+    ``kv/{k,kpos,v}`` (a ring cache of ``cache_len`` slots a row) for the
+    dense family and the VLM, ``kv_dense/...`` and ``kv_moe/...`` for the
+    MoE family (a stack of no layers keeps leaves of no layers, as the
+    reference's; ``{ckv,kpos,kr}`` with MLA),
+    ``blocks/{cm_last,tm_last,wkv}`` for RWKV-6, ``blocks/{conv,ssm}`` and
+    ``shared_kv/...`` (one entry a use of the shared block) for the
+    hybrid, ``kv/...`` and ``xkv/{k,v}`` ((L, B, ``enc_len``, KV, Dh)
+    zeros: the encoder's keys and values) for the audio
+    encoder-decoder."""
+    fam = _family(cfg)
+    dtype = getattr(torch, cfg.dtype)
     state = {}
-    for st in _family(cfg)(cfg):
-        one = st.state(cfg, b, cache_len, getattr(torch, cfg.dtype), device)
-        state.update({st.state_prefix + k:
-                      v[None].repeat((st.n,) + (1,) * v.dim())
+    for si, st in enumerate(fam.stacks):
+        n = _entries(fam, si)
+        one = st.state(cfg, b, cache_len, enc_len, dtype, device)
+        state.update({st.state_prefix + k: v[None].repeat((n,) + (1,) * v.dim())
                       for k, v in one.items()})
-    return state
+    return dict(sorted(state.items(), key=lambda kv: kv[0].split("/")))
 
 
 def decode_step(params: Params, cfg: ModelConfig, tok: torch.Tensor,
@@ -360,10 +599,13 @@ def decode_step(params: Params, cfg: ModelConfig, tok: torch.Tensor,
     """One token for the whole batch: ``tok`` (B, 1) int, ``pos`` the
     absolute position written (a host int).  Updates ``state`` in place;
     returns ``(logits (B, 1, V), state)``."""
+    fam = _family(cfg)
+    views = [_views(params, st) for st in fam.stacks]
+    entries = [_layers(state, st.state_prefix, _entries(fam, si))
+               for si, st in enumerate(fam.stacks)]
     x = L.embed(params["embed/table"], tok)
-    for st in _family(cfg)(cfg):
-        for p, ls in zip(_layers(params, st.prefix, st.n),
-                         _layers(state, st.state_prefix, st.n)):
-            x = st.decode(p, x, cfg, ls, pos)
+    for si, layer, entry in fam.walk:
+        x = fam.stacks[si].decode(views[si][layer], x, cfg,
+                                  entries[si][entry], pos)
     x = L.rmsnorm(params["final_norm/scale"], x, cfg.norm_eps)
     return L.lm_head(params, x, cfg), state

@@ -205,6 +205,12 @@ def test_wkv_step_matches_reference():
 
 
 def test_unported_family_raises():
-    cfg = get_smoke_config("qwen3-0.6b").with_(arch_type="hybrid")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """Every family of the reference is ported: an arch_type the
+    reference does not build raises ``ValueError``, as its
+    ``init_params`` does."""
+    cfg = get_smoke_config("qwen3-0.6b").with_(arch_type="diffusion")
+    with pytest.raises(ValueError, match="unknown arch_type 'diffusion'"):
         TM.make_decode_state(cfg, 1, 4, "cpu")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        JM.init_params(jax.random.PRNGKey(0),
+                       jax_smoke("qwen3-0.6b").with_(arch_type="diffusion"))
