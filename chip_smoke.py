@@ -189,6 +189,21 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    replayed on the CPU from the recorded draws and x0, its bits trace
    equal to the card's.  No kernel: the codecs are plain PyTorch, as
    the reference's are plain jnp.
+13. Observability (``phase_obs``): the trainer CLI on full-size
+   qwen3-0.6b (``q8_ring_fused``, DIANA + ``q8_block``, ``--mesh-data 4``,
+   batch 8, seq 128, 2 steps) without and with ``--metrics_out --trace``:
+   final params and shifts bitwise equal, the q8 launches exactly as the
+   steps and the run header's probes give (the ``qwen3-0.6b train
+   --metrics_out --trace`` entry of ``launches_by_path``); the JSONL
+   through ``export --check``, the grad wire's bits and payload bytes
+   the layouts' count, positive encode and decode seconds, ``omega_hat``
+   within the q8 certificate, a hide fraction in [0, 1], a positive
+   predicted step time, a step record a step and ``host/step`` the only
+   span; ``calibrate_rates`` no more than 1.05 x the card's f32 and
+   memory peaks, ``calibrate_link``'s fit printed; ``tree_distortion`` of
+   the q8 codec over the 13 W-stacked leaves bitwise equal with the
+   kernels and with their plain versions; a checkpoint of the final state
+   saved and restored onto the card bitwise equal.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1686,6 +1701,18 @@ def phase_wire_rehearsal(arch):
 RANDK_Q = 0.1               # keep fraction of the randk codec (its default)
 
 
+def q8_message_counts(d, w):
+    """(wire bits, payload bytes) of w workers' q8 messages of one
+    d-element leaf, from its layout: the int8 lanes block and one f32
+    scale per tile."""
+    from repro_torch.kernels.q8ring.ops import q8_layout
+
+    _, block, rows_pad = q8_layout(d)
+    tiles = rows_pad // block
+    return (w * (rows_pad * 128 * 8 + tiles * 32),
+            w * (rows_pad * 128 + tiles * 4))
+
+
 def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
                     reverse=False, w=W):
     """The f32 bit counter the step must report, from leaf shapes alone:
@@ -1697,7 +1724,6 @@ def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
     each step, each charged one dense f32 message of every param.
     ``reverse``: the leaves summed last first, as the overlap runtime's
     rounds sum them (its buckets' order)."""
-    from repro_torch.kernels.q8ring.ops import q8_layout
     from repro_torch.models.model import param_specs
 
     step_bits = np.float32(0)
@@ -1714,8 +1740,7 @@ def structural_bits(cfg, steps, codec="q8_block", refreshes=None,
             k = max(1, round((TOPK_Q if codec == "topk" else RANDK_Q) * d))
             leaf = w * k * (32 + math.ceil(math.log2(max(d, 2))))
         else:
-            _, block, rows_pad = q8_layout(d)
-            leaf = w * (rows_pad * 128 * 8 + (rows_pad // block) * 32)
+            leaf = q8_message_counts(d, w)[0]
         step_bits = np.float32(step_bits + np.float32(leaf))
     total = np.float32(0)
     for i in range(steps):
@@ -2858,6 +2883,293 @@ def phase_serve(qwen, rwkv):
     return launches
 
 
+OBS_STEPS = 2               # the trainer CLI's steps in phase_obs
+OBS_RATE_SLACK = 1.05       # calibrated rates may exceed the peaks by this
+
+
+def _bitwise(a, b):
+    """Two tensors of one dtype and shape equal bit for bit."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def _tree_bitwise(a, b):
+    """The leaves of two ``{path: tensor}`` trees that differ bitwise."""
+    return [k for k in a if not _bitwise(a[k], b[k])]
+
+
+def phase_obs(cfg):
+    """Observability on the card (phase 13): the trainer CLI
+    (``launch.train.main``) on full-size ``cfg``, ``q8_ring_fused``, DIANA
+    + ``q8_block``, W workers over ``--mesh-data W`` ring positions, batch
+    BATCH, seq SEQ, OBS_STEPS steps, run without observability and then
+    with ``--metrics_out`` and ``--trace``:
+
+    (a) the final params, shifts and master shift of the two runs bitwise
+        equal, and each q8 kernel launched exactly as the steps (and,
+        with observability, the run header's codec probes) give;
+    (b) the JSONL passes ``export --check``; its run record's grad wire
+        reports the structural wire bits and payload bytes counted from
+        the leaf layouts, positive encode and decode seconds and an
+        ``omega_hat`` within the q8 codec's certificate, a hide fraction
+        in [0, 1] and a finite positive predicted step time; one step
+        record a step, with positive ``step_s``; the span table holds
+        ``host/step`` OBS_STEPS times and nothing else;
+    (c) ``calibrate_rates`` reads no more than the card's f32 and memory
+        peaks (times OBS_RATE_SLACK; a higher reading would mean the
+        clock did not wait for the device), ``calibrate_link`` fitted;
+    (d) ``tree_distortion`` of the q8 codec over the W-stacked leaves,
+        run with the kernels and with their plain versions in their
+        place: ``err_sq`` and ``norm_sq`` bitwise equal;
+    (e) a checkpoint of the final state (params, AdamW moments, shifts)
+        saved and restored onto the card, bitwise equal to it.
+
+    Returns the kernels' launch counts of the observed run."""
+    import os
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.comm.channel import SimChannel
+    from repro_torch.comm.transport import build_transport
+    from repro_torch.comm.wire import AddressedNoise
+    from repro_torch.configs.base import CompressionConfig
+    from repro_torch.core.compressors import ShapeDtype, make_compressor
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models.model import param_specs
+    from repro_torch.obs import check_jsonl, export, read_jsonl
+    from repro_torch.obs.quality import tree_distortion
+
+    t_phase = time.perf_counter()
+    what = f"obs {cfg.name} q8_ring_fused q8_block"
+    mesh = HostMesh(data=W, device="cuda")
+    flags = ["--arch", cfg.name, "--steps", str(OBS_STEPS), "--batch",
+             str(BATCH), "--seq", str(SEQ), "--comm-mode", "q8_ring_fused",
+             "--compressor", "q8_block", "--mesh-data", str(W)]
+    # launches, from the leaves and the ring: the steps' message encodes
+    # and decodes and the ring's chunks; with observability, the run
+    # header's probes of one W-stacked grad-wire payload add codec_timings'
+    # encode (once, then a warm-up and 2 timed calls) and decode (a
+    # warm-up and 2 timed calls) and codec_quality's encode and decode
+    leaves = len(param_specs(cfg))
+    rings, _ = ring_counts(cfg, mesh, W)
+    msgs = leaves * W * OBS_STEPS
+    chunks = rings * W * W * OBS_STEPS
+    expect_off = {"q8_quantize_2d": msgs, "q8_quantize_chunk_3d": chunks,
+                  "q8_dequant_add_2d": msgs + chunks, "wkv6_forward": 0,
+                  "wkv6_backward": 0, "shifted_natural_2d": 0,
+                  "block_topk_2d": 0}
+    expect_on = dict(expect_off, q8_quantize_2d=msgs + 5 * W,
+                     q8_dequant_add_2d=msgs + chunks + 4 * W)
+
+    build = T.build_train_step
+    step_s = {}
+
+    def run(obs_flags, key):
+        """One CLI run, each step timed between device synchronisations
+        (outside the program: the obs-off run has no clock of its own)."""
+        times = step_s.setdefault(key, [])
+
+        def timed_build(*args, **kw):
+            step = build(*args, **kw)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                return out
+
+            return timed
+
+        wrappers = reset_launches()
+        T.build_train_step = timed_build
+        try:
+            state = T.main(flags + obs_flags)
+        finally:
+            T.build_train_step = build
+        torch.cuda.synchronize()
+        return state, {name: fn.launches for name, fn in wrappers.items()}
+
+    t0 = time.perf_counter()
+    off, launches_off = run([], "off")
+    t_off = time.perf_counter() - t0
+    check(launches_off == expect_off,
+          f"{what} (obs off): launches {launches_off}, expected {expect_off}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    jsonl = os.path.join(tmp, "run.jsonl")
+    try:
+        t0 = time.perf_counter()
+        on, launches_on = run(["--metrics_out", jsonl, "--trace"], "on")
+        t_on = time.perf_counter() - t0
+        check(launches_on == expect_on,
+              f"{what} (obs on): launches {launches_on}, expected "
+              f"{expect_on}")
+        # (a) observability changes nothing of the state
+        for part in ("params", "h", "h_bar"):
+            off_part = _tree_bitwise(getattr(off, part), getattr(on, part))
+            check(not off_part, f"{what}: {part} differ with --metrics_out "
+                                f"--trace at {off_part[:4]}")
+        check(_bitwise(off.bits, on.bits), f"{what}: bits differ")
+        log(f"{what}: params, h and h_bar after {OBS_STEPS} steps bitwise "
+            f"equal with and without --metrics_out --trace; launches "
+            f"{launches_on} with, {launches_off} without (as expected)")
+        del off
+        torch.cuda.empty_cache()
+
+        # (b) the records
+        n, errors = check_jsonl(jsonl)
+        check(not errors, f"{what}: invalid records {errors[:4]}")
+        check(export.main(["--check", jsonl]) == 0, f"{what}: export --check")
+        recs = read_jsonl(jsonl)
+        run_rec = recs[0]["data"]
+        grad = run_rec["wires"]["grad"]
+        counts = [q8_message_counts(math.prod(shape), W)
+                  for _, shape, _ in param_specs(cfg)]
+        bits = sum(c[0] for c in counts)
+        nbytes = sum(c[1] for c in counts)
+        acct = build_transport(
+            CompressionConfig(comm_mode="q8_ring_fused",
+                              compressor="q8_block"), cfg, SimChannel(),
+            w=W, params_like=T.params_like(cfg))["grad"]
+        check(grad["wire_bits"] == bits,
+              f"{what}: grad wire_bits {grad['wire_bits']} != structural "
+              f"{bits}")
+        check(grad["payload_bytes"] == nbytes == acct.payload_nbytes(),
+              f"{what}: grad payload_bytes {grad['payload_bytes']} != "
+              f"{nbytes} from the layouts")
+        check(grad["encode_s"] > 0 and grad["decode_s"] > 0,
+              f"{what}: encode_s {grad['encode_s']} decode_s "
+              f"{grad['decode_s']}")
+        within = [math.prod(s[1:]) for s in
+                  ((W, *shape) for _, shape, _ in param_specs(cfg))
+                  if 4 * math.prod(s) <= 1 << 18]
+        probe_d = max(within)   # codec_quality's probe: the largest leaf
+        cert = make_compressor("q8_block").omega(probe_d)
+        check(0 < grad["omega_hat"] <= cert,
+              f"{what}: omega_hat {grad['omega_hat']} vs certificate {cert}")
+        check(0.0 <= run_rec["hide_fraction"] <= 1.0,
+              f"{what}: hide_fraction {run_rec['hide_fraction']}")
+        pred = run_rec["predicted_step_s"]
+        check(pred is not None and math.isfinite(pred) and pred > 0,
+              f"{what}: predicted_step_s {pred}")
+        steps = [r for r in recs if r["kind"] == "step"]
+        check([r["step"] for r in steps] == list(range(OBS_STEPS))
+              and all(r["data"]["step_s"] > 0 for r in steps),
+              f"{what}: step records {steps}")
+        spans = recs[-1]["data"]["spans"]
+        check(list(spans) == ["host/step"]
+              and spans["host/step"]["count"] == OBS_STEPS,
+              f"{what}: span table {spans}")
+        rec_s = [r["data"]["step_s"] for r in steps]
+        log(f"{what}: {n} records, export --check OK; grad wire "
+            f"{grad['wire_bits']:.0f} bits = structural, "
+            f"{grad['payload_bytes']:.0f} B payload = the layouts'; "
+            f"encode_s {grad['encode_s']:.6e} decode_s "
+            f"{grad['decode_s']:.6e} (one ({W}, ...) payload of "
+            f"<= 1 MiB); omega_hat {grad['omega_hat']:.6e} <= certificate "
+            f"{cert:.6e} (d = {probe_d}); hide_fraction "
+            f"{run_rec['hide_fraction']:.6f} ({run_rec['hide_source']}); "
+            f"predicted_step_s {pred:.6e} (nominal link, comm only)")
+        log(f"{what}: step_s by the records {rec_s}; by the script's "
+            f"synchronised clock, obs on {step_s['on']}, obs off "
+            f"{step_s['off']}; whole CLI run {t_on:.2f} s on, {t_off:.2f} "
+            f"s off")
+    finally:
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+
+    # (c) honest clocks
+    rates = tune.calibrate_rates()
+    wlike = {k: ShapeDtype((W, *v.shape), v.dtype, v.device)
+             for k, v in T.params_like(cfg).items()}
+    link = tune.calibrate_link(mesh, wlike)
+    log(f"{what}: calibrate_rates {rates.flops_per_s:.6e} FLOP/s (f32) "
+        f"{rates.hbm_bytes_per_s:.6e} B/s; calibrate_link alpha "
+        f"{link.alpha_s:.6e} s beta {link.beta_s_per_byte:.6e} s/B "
+        f"({1 / max(link.beta_s_per_byte, 1e-30):.6e} B/s)")
+    check(rates.flops_per_s <= OBS_RATE_SLACK * F32_OPS_PER_S
+          and rates.hbm_bytes_per_s <= OBS_RATE_SLACK * HBM_BYTES_PER_S,
+          f"{what}: calibrated rates above the card's peaks: {rates}")
+
+    # (d) the q8 kernels through the distortion probe vs their plain ones
+    tree = tune.synth_wtree(5, wlike, device="cuda")
+    q8 = make_compressor("q8_block")
+    wrappers = reset_launches()
+    got = tree_distortion(q8, AddressedNoise(21, "cuda"), tree)
+    launched = {k: wrappers[k].launches for k in ("q8_quantize_2d",
+                                                  "q8_dequant_add_2d")}
+    check(launched == {"q8_quantize_2d": leaves * W,
+                       "q8_dequant_add_2d": leaves * W},
+          f"{what}: tree_distortion launches {launched}")
+    swaps = plain_q8()
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        want = tree_distortion(q8, AddressedNoise(21, "cuda"), tree)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    del tree
+    for k in ("err_sq", "norm_sq", "omega_hat", "nmse"):
+        check(_bitwise(got[k], want[k]),
+              f"{what}: tree_distortion {k} {got[k].item()} with the "
+              f"kernels, {want[k].item()} with their plain versions")
+    log(f"{what}: tree_distortion over {leaves} ({W}, ...) leaves: "
+        f"omega_hat {got['omega_hat'].item():.6e} nmse "
+        f"{got['nmse'].item():.6e}; err_sq and norm_sq bitwise equal with "
+        f"the kernels ({launched}) and with their plain versions")
+
+    # (e) checkpoint of the final state: one file a part, the parts
+    # saved side by side and restored side by side (zipfile's CRC and the
+    # writes and reads let go of the interpreter)
+    from concurrent.futures import ThreadPoolExecutor
+
+    state = {"params": on.params, "m": on.opt.m, "v": on.opt.v, "h": on.h,
+             "h_bar": on.h_bar}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    paths = {k: os.path.join(tmp, f"{k}.npz") for k in state}
+    try:
+        with ThreadPoolExecutor(len(state)) as pool:
+            t0 = time.perf_counter()
+            for f in [pool.submit(save, paths[k], v, step=on.step)
+                      for k, v in state.items()]:
+                f.result()
+            t_save = time.perf_counter() - t0
+            size = sum(os.path.getsize(p) for p in paths.values())
+            t0 = time.perf_counter()
+            back = {k: pool.submit(restore, paths[k], v, device="cuda")
+                    for k, v in state.items()}
+            back = {k: f.result() for k, f in back.items()}
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+    finally:
+        for p in paths.values():
+            if os.path.exists(p):
+                os.remove(p)
+        os.rmdir(tmp)
+    off_leaves = [f"{k}/{leaf}" for k in state
+                  for leaf in _tree_bitwise(state[k], back[k])]
+    check(not off_leaves, f"{what}: checkpoint differs at {off_leaves[:4]}")
+    check(all(t.device.type == "cuda" for t in back["params"].values()),
+          f"{what}: restore did not land on the card")
+    check(all(latest_step(p) is None for p in paths.values()),
+          f"{what}: checkpoint files left behind")
+    log(f"{what}: checkpoint of params, AdamW moments, h and h_bar "
+        f"({size / 2**30:.2f} GiB in {len(paths)} files) saved in "
+        f"{t_save:.1f} s, restored onto the card in {t_restore:.1f} s, "
+        f"bitwise equal")
+    del back, state, on
+    torch.cuda.empty_cache()
+    log(f"the obs phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches_on
+
+
 class RecordingNoise:
     """A noise source that keeps every draw it hands out, tagged as
     ``repro_torch.comm.wire`` tags them, for a replay elsewhere."""
@@ -3246,6 +3558,8 @@ def main(argv=None):
     del entry_inputs
     torch.cuda.empty_cache()
     by_path["qwen3-0.6b serve"] = phase_serve(qwen, rwkv)
+    torch.cuda.empty_cache()
+    by_path["qwen3-0.6b train --metrics_out --trace"] = phase_obs(qwen)
     torch.cuda.empty_cache()
     phase_convex(card)
     # each kernel's launches on the path of the slice that ported it: the

@@ -51,7 +51,8 @@ Tree = Dict[str, torch.Tensor]
 
 #: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
 _NOT_PORTED = {
-    "auto": "ROADMAP queue 1, item 11 (tune)",
+    "auto": "ROADMAP queue 1, item 11 (tune.plan, tune.search and "
+            "autotune, with the --autotune / --tune-plan flags)",
 }
 
 #: comm modes served by the bucketed overlap runtime (``AsyncChannel``)

@@ -31,9 +31,11 @@ sum in the last bit of the f32 counter.
 
 The channel's ``wspecs`` (worker-stacked specs, ``dist.sharding``) are
 keyed by path, so each bucket's reduction takes the specs of its own
-leaves (``MeshChannel.reduce``).  Not here yet: the reference's ``obs``
-stamp recorder (ROADMAP queue 1, item 11) raises
-``NotImplementedError``.
+leaves (``MeshChannel.reduce``).  With an ``obs`` recorder attached
+(``obs.trace.StampRecorder``) the explicit ``reduce_start`` / ``finish``
+calls stamp their call windows, which ``tune.measure.measure_overlap_hide``
+reads; a stamp reads the host clock around the call and nothing else, so
+the round is bitwise the round without it.
 """
 
 from __future__ import annotations
@@ -142,7 +144,7 @@ class AsyncChannel(MeshChannel):
     mode: str = "q8_ring_fused"
     bucket_bytes: int = DEFAULT_BUCKET_BYTES
     per_leaf: bool = False
-    obs: Any = None
+    obs: Any = None        # optional StampRecorder (module docstring)
     _side: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
@@ -150,10 +152,6 @@ class AsyncChannel(MeshChannel):
         if self.bucket_bytes <= 0:
             raise ValueError(
                 f"bucket_bytes must be positive, got {self.bucket_bytes}")
-        if self.obs is not None:
-            raise NotImplementedError(
-                "obs (the StampRecorder) is not ported yet: ROADMAP queue "
-                "1, item 11 (obs)")
 
     def _plan(self, wtree) -> BucketPlan:
         return plan_buckets(wtree, self.bucket_bytes, per_leaf=self.per_leaf)
@@ -196,14 +194,29 @@ class AsyncChannel(MeshChannel):
 
     def reduce_start(self, noise, wtree: Tree) -> Inflight:
         """Issue every bucket's aggregation; returns the handles without
-        waiting for them."""
+        waiting for them.  With an ``obs`` recorder attached the call
+        window is stamped ``"reduce_start"``."""
+        if self.obs is not None:
+            with self.obs.stamp("reduce_start"):
+                return self._reduce_start(noise, wtree)
+        return self._reduce_start(noise, wtree)
+
+    def _reduce_start(self, noise, wtree: Tree) -> Inflight:
         keys, leaves = tuple(wtree), list(wtree.values())
         return Inflight(keys, tuple(
             self._reduce_bucket(noise, keys, leaves, b)
             for b in self._plan(wtree).buckets))
 
     def finish(self, inflight: Inflight) -> dict:
-        """Wait for every handle and assemble ``{path: WorkerMean}``."""
+        """Wait for every handle and assemble ``{path: WorkerMean}``
+        (the call window stamped ``"finish"`` when ``obs`` is
+        attached)."""
+        if self.obs is not None:
+            with self.obs.stamp("finish"):
+                return self._finish(inflight)
+        return self._finish(inflight)
+
+    def _finish(self, inflight: Inflight) -> dict:
         out: list = [None] * len(inflight.keys)
         seen = 0
         for h in inflight.handles:
@@ -240,7 +253,7 @@ class AsyncChannel(MeshChannel):
             handles.append(self._reduce_bucket(noise, keys, msgs, b))
         m = dict(zip(keys, msgs))
         aux, extra = rule.aux(noise, wgrads, h)
-        m_bar = self.finish(Inflight(keys, tuple(handles)))
+        m_bar = self._finish(Inflight(keys, tuple(handles)))
         g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar, aux)
         return g_bar, h_new, hb_new, bits + extra
 
@@ -259,7 +272,7 @@ class AsyncChannel(MeshChannel):
             for i in b.indices:
                 bits = bits + f32_bits(rule.message_bits_aot(q, leaves[i]))
             handles.append(self._reduce_bucket(noise, keys, leaves, b))
-        m_bar = self.finish(Inflight(keys, tuple(handles)))
+        m_bar = self._finish(Inflight(keys, tuple(handles)))
         aux, extra = rule.aux(noise, msgs, h)
         g_bar, h_new, hb_new = rule.apply(msgs, msgs, m_bar, h, h_bar, aux)
         return g_bar, h_new, hb_new, bits + extra
@@ -282,6 +295,6 @@ class AsyncChannel(MeshChannel):
         bits = f32_bits()
         for bl in leaf_bits:
             bits = bits + f32_bits(bl)
-        means = self.finish(Inflight(keys, tuple(handles)))
+        means = self._finish(Inflight(keys, tuple(handles)))
         return (dict(zip(keys, msgs)),
                 {k: m.value() for k, m in means.items()}, bits)

@@ -29,13 +29,22 @@ and act wires is addressed by (round, layer, worker, group, part)
 Accounting is ahead of time and structural: ``Compressor.payload_like``
 runs a codec's encode on meta tensors (shapes, no data, no draw), the
 same encode the live traffic runs, so the bits cannot drift from the
-wire protocol.  The measured surfaces of the reference's Wire
-(``codec_timings``, ``codec_quality``, ``obs_snapshot``), the tune
-model's ``overlap_hidden``, ``fused`` and ``extra_traffic`` come with
-obs and tune (ROADMAP queue 1, item 11).  The grad wire's accounting
-codec is the aggregation's (``aggregation_wire_codec``): ``randk_shared``
-is charged ``RandK(q=randk_q, shared_pattern=True)``, whose pattern
-rides in ``meta`` and costs no bits.
+wire protocol.  The grad wire's accounting codec is the aggregation's
+(``aggregation_wire_codec``): ``randk_shared`` is charged ``RandK(q=randk_q,
+shared_pattern=True)``, whose pattern rides in ``meta`` and costs no
+bits.
+
+Measured surfaces (the obs run header reads them through
+``Transport.obs_snapshot``): ``Wire.codec_timings`` times one payload of
+a wire's traffic through its codec (``tune.measure.time_fn``, the device
+synchronised around every call; a fused wire reports exact zeros without
+timing anything: its encode runs inside the backward pass), and
+``Wire.codec_quality`` measures its ``omega_hat``/``nmse``
+(``obs.quality``), both on data and draws of their own.  A wire's
+``overlap_hidden`` (the tune model's nominal ``OVERLAP_HIDE`` on the
+overlap and fused modes' grad wire) and ``fused`` are set by
+``build_transport``; ``Transport.extra_traffic`` is what the tune
+predictor charges for the non-grad wires.
 """
 
 from __future__ import annotations
@@ -170,6 +179,10 @@ class Wire:
     rule: Any = None                 # allreduce: the phased ShiftRule
     msg_codec: Any = None            # allreduce: the rule's message codec
     traffic: Tuple = ()
+    overlap_hidden: float = 0.0      # fraction of comm hidden under compute
+    fused: bool = False              # encode runs INSIDE the backward pass
+    #                                  (comm.fused_vjp): no standalone
+    #                                  encode launches on this wire
 
     def __post_init__(self):
         if self.topology not in WIRE_TOPOLOGIES:
@@ -249,6 +262,102 @@ class Wire:
         """Per-step payload buffer bytes of the declared traffic."""
         return self._per_step(_aot_payload_nbytes)
 
+    # -- measured surfaces -------------------------------------------------
+
+    def _probe(self, cap_bytes: int, seed: int, device):
+        """The probe data of ``codec_timings`` / ``codec_quality``: the
+        largest declared shape within ``cap_bytes`` (falling back to the
+        smallest -- a micro-measurement must stay micro), normal values
+        from a generator seeded with ``seed``, on ``device`` (default:
+        the CUDA device); and the draws of leaf 0 of an addressed noise
+        source of the same seed."""
+        from repro_torch.comm.wire import AddressedNoise, LeafNoise
+        from repro_torch.device import resolve_device
+
+        def nbytes(like):
+            return math.prod(like.shape) * like.dtype.itemsize
+
+        within = [like for like, _ in self.traffic
+                  if nbytes(like) <= cap_bytes]
+        like = (max(within, key=nbytes) if within
+                else min((l for l, _ in self.traffic), key=nbytes))
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        data = torch.randn(tuple(like.shape), generator=gen, device=dev,
+                           dtype=torch.float32).to(like.dtype)
+        return data, LeafNoise(AddressedNoise(seed, dev), 0)
+
+    def codec_timings(self, *, iters: int = 2, cap_bytes: int = 1 << 20,
+                      seed: int = 0, device=None
+                      ) -> Dict[str, Optional[float]]:
+        """Measured ``{"encode_s", "decode_s"}`` of ONE payload of this
+        wire's traffic through its codec (median wall clock of
+        ``tune.measure.time_fn``, the device synchronised around every
+        call; the shape as ``_probe`` picks it).  Nones when the wire
+        declares no traffic.  ``decode_s`` times the decode of the
+        encoded payload alone (the reference takes the round trip minus
+        the encode, which short noisy timings can drive to zero).
+
+        A FUSED wire reports exact zeros without timing anything: its
+        encode and decode run inside the backward pass itself (the
+        cotangent is consumed as it is produced), so there is no
+        standalone codec launch to measure.
+        """
+        if self.fused:
+            return {"encode_s": 0.0, "decode_s": 0.0}
+        if not self.traffic:
+            return {"encode_s": None, "decode_s": None}
+        from repro_torch.comm.wire import worker_draws
+        from repro_torch.core.compressors import ShapeDtype
+        from repro_torch.tune.measure import time_fn
+
+        data, noise = self._probe(cap_bytes, seed, device)
+        codec = self.codec
+        if self.topology == "allreduce":   # each worker row, its own draws
+            like = ShapeDtype(tuple(data.shape[1:]), data.dtype, data.device)
+
+            def enc():
+                return [codec.encode(d, data[j]) for j, d in
+                        enumerate(worker_draws(codec, noise, data.shape[0]))]
+        else:                              # the block whole, one draw
+            like = ShapeDtype.of(data)
+
+            def enc():
+                return [codec.encode(noise.worker(None), data)]
+
+        sent = enc()
+
+        def dec():
+            return [codec.decode(payload, meta, like)
+                    for payload, meta in sent]
+
+        return {"encode_s": float(time_fn(enc, iters=iters)),
+                "decode_s": float(time_fn(dec, iters=iters))}
+
+    def codec_quality(self, *, cap_bytes: int = 1 << 18, seed: int = 0,
+                      device=None) -> Dict[str, Optional[float]]:
+        """Measured ``{"omega_hat", "nmse"}`` of ONE payload of this
+        wire's traffic through its codec (``obs.quality``), the shape as
+        ``codec_timings`` picks it (within ``cap_bytes``).  The probe
+        runs the wire's REAL encode path per topology (allreduce: each
+        worker row with its own draws; everything else: whole-block
+        encode/decode).  Unlike timings, a FUSED wire is probed too --
+        fusing deletes the standalone launch, not the distortion.
+        Nones when no traffic is declared.
+        """
+        if not self.traffic:
+            return {"omega_hat": None, "nmse": None}
+        from repro_torch.obs.quality import array_distortion
+
+        data, noise = self._probe(cap_bytes, seed, device)
+        out = array_distortion(self.codec, noise, data,
+                               topology=self.topology)
+        err = float(out["err_sq"])
+        norm = float(out["norm_sq"])
+        nmse = err / norm if norm > 0.0 else 0.0
+        return {"omega_hat": nmse, "nmse": nmse}
+
 
 class Transport:
     """Per-step registry of every Wire.  Dict-like: ``transport["grad"]``,
@@ -290,6 +399,40 @@ class Transport:
     def per_wire_bits(self) -> Dict[str, float]:
         """{wire name: per-step wire bits}."""
         return {name: wire.wire_bits() for name, wire in self._wires.items()}
+
+    def obs_snapshot(self, *, timed: bool = False, quality: bool = False,
+                     device=None) -> Dict[str, dict]:
+        """Per-wire telemetry dict for the obs run header: topology,
+        codec, structural ``wire_bits`` AND actual ``payload_bytes`` per
+        step, plus (with ``timed``) measured encode/decode seconds and
+        (with ``quality``) measured ``omega_hat``/``nmse`` of one
+        payload, measured on ``device`` (default: the CUDA device).
+        Keys match what ``repro_torch.obs.export`` renders."""
+        snap: Dict[str, dict] = {}
+        for name, wire in self._wires.items():
+            timings = (wire.codec_timings(device=device) if timed
+                       else {"encode_s": None, "decode_s": None})
+            qual = (wire.codec_quality(device=device) if quality
+                    else {"omega_hat": None, "nmse": None})
+            snap[name] = {
+                "topology": wire.topology,
+                "codec": type(wire.codec).__name__,
+                "wire_bits": wire.wire_bits(),
+                "payload_bytes": wire.payload_nbytes(),
+                "fused": wire.fused,
+                **timings,
+                **qual,
+            }
+        return snap
+
+    def extra_traffic(self) -> Dict[str, Tuple]:
+        """Declared traffic of every NON-grad wire, keyed by name — the
+        ``wire_traffic`` dict the tune predictor charges."""
+        return {
+            name: wire.traffic
+            for name, wire in self._wires.items()
+            if name != "grad" and wire.traffic
+        }
 
 
 @dataclass(frozen=True)
@@ -346,7 +489,10 @@ def build_transport(comp, cfg, channel, *, rule=None, msg_codec=None,
     publish_every`` a step.  ``params_like`` (``{path: anything with
     .shape and .dtype}``) declares the grad wire's traffic as
     worker-stacked leaves and the model wire's as the leaves themselves;
-    omit it for a transport that never reads ``per_wire_bits``.
+    omit it for a transport that never reads ``per_wire_bits``.  The
+    grad wire's ``overlap_hidden`` is ``tune.model.OVERLAP_HIDE`` and its
+    ``fused`` set on the modes that earn them, as the reference sets
+    them.
 
     The ``moe`` wire (``all_to_all``) and the ``act`` wire (``p2p``)
     when their flags are set, their traffic declared when
@@ -356,14 +502,24 @@ def build_transport(comp, cfg, channel, *, rule=None, msg_codec=None,
     d_model) send per layer per worker.  Each raises the reference's
     ``ValueError`` for an architecture that cannot carry it.
     """
+    from repro_torch.comm.channel import FUSED_VJP_MODES, OVERLAP_MODES
+
     meta = torch.device("meta")
     leaves = [] if params_like is None else list(params_like.values())
+    enabled = getattr(comp, "enabled", False)
+    hidden = 0.0
+    if enabled and comp.comm_mode in OVERLAP_MODES + FUSED_VJP_MODES:
+        from repro_torch.tune.model import OVERLAP_HIDE
+
+        hidden = OVERLAP_HIDE
     wires = [Wire(
         name="grad", topology="allreduce",
         codec=aggregation_wire_codec(comp), channel=channel, rule=rule,
         msg_codec=msg_codec,
         traffic=tuple((ShapeDtype((w, *leaf.shape), leaf.dtype, meta), 1)
                       for leaf in leaves),
+        overlap_hidden=hidden,
+        fused=enabled and comp.comm_mode in FUSED_VJP_MODES,
     )]
     moe_flag = getattr(comp, "moe_wire", "none")
     if moe_flag != "none":

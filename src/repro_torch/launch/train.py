@@ -29,6 +29,18 @@ its end.
 State is updated in place (params, moments, shifts); see the modules
 that do it.
 
+The step's phases (``train/grads``, ``train/reduce``, ``train/round``,
+``train/apply``) are profiler annotations (``obs.trace.annotate``): they
+tag the work for a running ``torch.profiler`` and add no clock, no
+synchronisation and no op; with no profiler running ``obs`` is not even
+imported.  ``--metrics_out`` writes the reference's obs records (strict
+JSONL): a ``run`` header (per-wire telemetry with measured codec
+timings and quality, the measured overlap hide fraction, the nominal
+predicted step time), one ``step`` record a step (the step's wall clock
+ends in a device synchronisation), the ``drift_resync`` events and a
+``summary``; it turns ``diag`` on, and the returned state stays bitwise
+the uninstrumented run's.  ``--trace`` records the ``host/step`` span.
+
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
           [--compressor natural|topk|randk|q8_block|...] \
@@ -40,16 +52,20 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--moe-wire none|dense|q8|...] [--act-wire none|dense|q8|...] \
           [--model-wire none|dense|q8|natural|... [--publish_every N] \
            [--serve_fleet N] [--stale_k K]] \
-          [--lr LR] [--no-compression] [--device cuda|cpu]
+          [--lr LR] [--no-compression] [--device cuda|cpu] \
+          [--mesh-data N] [--metrics_out RUN.jsonl] [--trace]
 
 The worker count is the size of the host mesh's ``data`` axis, as in the
-reference: the CUDA device count, or 1 on the CPU.
+reference: the CUDA device count, or 1 on the CPU; ``--mesh-data N``
+puts N positions on the one device instead (the counterpart of the
+reference's emulated devices).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from contextlib import nullcontext
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -205,6 +221,16 @@ def _worker_mean_f32(wtree):
     return dense_mean({k: v.to(torch.float32) for k, v in wtree.items()})
 
 
+def _phase(name: str):
+    """The profiler tag of one step phase (``obs.trace.annotate``); with
+    no profiler running, nothing at all (``obs`` is not imported)."""
+    if not torch.autograd._profiler_enabled():
+        return nullcontext()
+    from repro_torch.obs.trace import annotate
+
+    return annotate(name)
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                      mesh: Optional[HostMesh] = None, diag: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
@@ -260,15 +286,19 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                                     for j in range(w)]
         if fused:
             wbatch = with_fused_draws(wbatch, rule, q, state, w)
-        grads, loss, metrics = per_worker_grads(loss_fn, state.params, wbatch)
+        with _phase("train/grads"):
+            grads, loss, metrics = per_worker_grads(loss_fn, state.params,
+                                                    wbatch)
         extra = {}
         if not comp.enabled:
-            g_bar = grad_wire.reduce_mean(state.noise, grads)
+            with _phase("train/reduce"):
+                g_bar = grad_wire.reduce_mean(state.noise, grads)
             h, h_bar, bits = state.h, state.h_bar, state.bits
         elif iterate_rule:
             # Algorithm 2: the round mixes the iterate itself (in place)
-            params, h, h_bar, step_bits = grad_wire.iterate_round(
-                state.noise, state.params, grads, state.h, state.h_bar)
+            with _phase("train/round"):
+                params, h, h_bar, step_bits = grad_wire.iterate_round(
+                    state.noise, state.params, grads, state.h, state.h_bar)
             state.noise.next_round()
             new_state = TrainState(params, state.opt, h, h_bar, state.noise,
                                    state.step + 1, state.bits + step_bits)
@@ -279,15 +309,16 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                 # against the shifts BEFORE the round, which updates them
                 # in place
                 extra.update(residual_sq_diag(grads, state.h))
-            if fused:   # ``grads`` are the decoded messages already
-                g_bar, h, h_bar, step_bits = grad_wire.fused_round(
-                    state.noise, grads, state.h, state.h_bar)
-            else:
-                g_bar, h, h_bar, step_bits = grad_wire.shift_round(
-                    state.noise, grads, state.h, state.h_bar)
-            # bound the shift-tracking drift of lossy aggregation
-            h_bar = resync_h_bar(h, h_bar, state.step,
-                                 comp.drift_resync_every)
+            with _phase("train/round"):
+                if fused:   # ``grads`` are the decoded messages already
+                    g_bar, h, h_bar, step_bits = grad_wire.fused_round(
+                        state.noise, grads, state.h, state.h_bar)
+                else:
+                    g_bar, h, h_bar, step_bits = grad_wire.shift_round(
+                        state.noise, grads, state.h, state.h_bar)
+                # bound the shift-tracking drift of lossy aggregation
+                h_bar = resync_h_bar(h, h_bar, state.step,
+                                     comp.drift_resync_every)
             bits = state.bits + step_bits
             if diag:
                 if not fused:
@@ -297,7 +328,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                     extra["h_bar_drift"] = _tree_dist(h_bar,
                                                       _worker_mean_f32(h))
         del grads
-        params, opt = optimizer.update(g_bar, state.opt, state.params)
+        with _phase("train/apply"):
+            params, opt = optimizer.update(g_bar, state.opt, state.params)
         state.noise.next_round()
         new_state = TrainState(params, opt, h, h_bar, state.noise,
                                state.step + 1, bits)
@@ -400,7 +432,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--mesh-data", "--mesh_data", dest="mesh_data", type=int,
+                    default=None,
+                    help="positions of the host mesh's data axis (the DCGD "
+                         "workers), all on the one device (default: one per "
+                         "CUDA device, 1 on the CPU)")
+    ap.add_argument("--metrics_out", "--metrics-out", dest="metrics_out",
+                    default=None,
+                    help="write per-step obs records (strict JSONL, "
+                         "rotated) here; enables shift-rule diagnostics "
+                         "(h_bar drift, EF error norm) in the metrics "
+                         "dict — the returned train STATE stays "
+                         "bit-exact with the uninstrumented run")
+    ap.add_argument("--trace", action="store_true",
+                    help="record host wall-clock spans per phase "
+                         "(encode/reduce/apply) and include the span "
+                         "table in the run summary")
     return ap
+
+
+def _host_spans_table(spans: dict) -> str:
+    from repro_torch import obs
+
+    rows = [(n, sp["count"], f"{sp['mean_s']:.3e}s")
+            for n, sp in sorted(spans.items())]
+    return obs.format_table("host spans", ["span", "count", "mean"], rows)
 
 
 def main(argv: Optional[list] = None):
@@ -425,21 +481,74 @@ def main(argv: Optional[list] = None):
     if args.serve_fleet > 0 and args.model_wire == "none":
         raise SystemExit("--serve_fleet needs a model downlink; pass "
                          "--model_wire (dense/q8/natural/...)")
-    mesh = make_host_mesh(device)
+    mesh = (make_host_mesh(device) if args.mesh_data is None
+            else HostMesh(data=args.mesh_data, device=device))
     w = n_workers(mesh)
     if args.batch % w:
         raise SystemExit(f"--batch must be divisible by {w} workers")
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 10),
                        compression=comp)
+    # the sink and the recorder exist only with observability on: obs is
+    # not imported otherwise
+    obs_on = args.metrics_out is not None
+    sink = recorder = None
+    if obs_on or args.trace:
+        from repro_torch import obs
+
+        if obs_on:
+            sink = obs.JsonlSink(args.metrics_out)
+        if args.trace:
+            recorder = obs.SpanRecorder()
 
     state = init_state(0, cfg, tcfg, w, device)
-    step_fn = build_train_step(cfg, tcfg, w, mesh)
+    step_fn = build_train_step(cfg, tcfg, w, mesh, diag=obs_on)
     stream = TokenStream(cfg, args.seq, args.batch)
     # the per-wire structural traffic of a step, every wire at once
     acct = build_transport(comp, cfg, SimChannel(), w=w,
                            params_like=params_like(cfg),
                            tokens_per_worker=(args.batch // w) * args.seq)
+
+    predicted_step_s = None
+    if obs_on:
+        from repro_torch import tune
+
+        # the predicted step time of the measured-vs-predicted ledger: a
+        # nominal comm-only prediction (no compute analysis: the gap is
+        # the point, not a problem)
+        wlike = {k: ShapeDtype((w, *p.shape), p.dtype, p.device)
+                 for k, p in params_like(cfg).items()}
+        if comp.enabled and comp.comm_mode in tune.TUNABLE_MODES:
+            cand = tune.Candidate(
+                comp.comm_mode,
+                bucket_bytes=comp.overlap_bucket_bytes,
+                randk_q=comp.randk_q,
+                q8_block_rows=comp.q8_block_rows or 64,
+                efbv_eta=comp.efbv_eta, efbv_nu=comp.efbv_nu,
+                compressor=comp.compressor,
+                compressor_kwargs=tuple(comp.compressor_kwargs),
+            )
+            predicted_step_s = tune.predict_step(
+                cand, wlike, tune.LinkModel.nominal(), w).step_s
+        # run header: per-wire telemetry (structural bits AND payload
+        # bytes, measured codec timings and quality) + the measured
+        # overlap hide
+        m = tune.measure_overlap_hide(mesh, wlike, cap_bytes=1 << 20,
+                                      iters=2)
+        sink.emit(obs.run_record(
+            "train",
+            arch=args.arch,
+            workers=w,
+            comm_mode=comp.comm_mode,
+            shift_rule=comp.effective_shift_rule if comp.enabled else None,
+            steps=args.steps,
+            wires=acct.obs_snapshot(timed=True, quality=True, device=device),
+            hide_fraction=m.hide_fraction,
+            hide_source=m.source,
+            omega=None,
+            omega_source="analytic",
+            predicted_step_s=predicted_step_s,
+        ))
 
     bridge = None
     if args.serve_fleet > 0:
@@ -448,7 +557,7 @@ def main(argv: Optional[list] = None):
         bridge = TrainerFleetBridge(
             cfg, state.params, acct["model"], n_replicas=args.serve_fleet,
             publish_every=comp.publish_every, stale_k=args.stale_k,
-            noise=AddressedNoise(1, device))
+            noise=AddressedNoise(1, device), obs=sink)
 
     print(f"arch={args.arch} params={M.count_params_analytic(cfg):,} "
           f"workers={w} device={device} compression={comp.enabled} "
@@ -458,15 +567,46 @@ def main(argv: Optional[list] = None):
     print("wire bytes/step: " + "  ".join(
         f"{name}={bits / 8:,.0f}" for name, bits in
         acct.per_wire_bits().items()))
+    every = comp.drift_resync_every if comp.enabled else 0
+    loop_ctx = obs.recording(recorder) if recorder is not None else \
+        nullcontext()
+    # the host span around a step ends in a device synchronisation (the
+    # step's state ready, as the reference's block_until_ready): the
+    # span and the step record hold the device's work, not its launches
+    step_ctx = ((lambda: obs.span("host/step")) if recorder is not None
+                else nullcontext)
+    timed = sink is not None or recorder is not None
     t0 = time.time()
-    for i in range(args.steps):
-        state, metrics = step_fn(state, stream.batch(i, device))
-        if bridge is not None:
-            bridge.on_step(state.params, i + 1)
-        if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
-            print(f"step {i:4d}  loss {float(metrics['loss']):.4f}  "
-                  f"bits {float(metrics['bits']):.3e}  "
-                  f"({time.time() - t0:.1f}s)")
+    with loop_ctx:
+        for i in range(args.steps):
+            ts = time.perf_counter()
+            with step_ctx():
+                state, metrics = step_fn(state, stream.batch(i, device))
+                if timed and device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            step_s = time.perf_counter() - ts
+            if bridge is not None:
+                bridge.on_step(state.params, i + 1)
+            if sink is not None:
+                sink.emit(obs.step_record(
+                    i,
+                    loss=float(metrics["loss"]),
+                    bits=float(metrics["bits"]),
+                    step_s=step_s,
+                    predicted_step_s=predicted_step_s,
+                    **{k: (float(metrics[k]) if k in metrics else None)
+                       for k in ("h_bar_drift", "ef_err_norm", "grad_sq",
+                                 "shift_residual_sq")},
+                ))
+                # resync_h_bar fires at (step % N) == N-1; the event
+                # mirrors it from the same arithmetic
+                if every and (i % every) == every - 1:
+                    sink.emit(obs.event_record("drift_resync", i,
+                                               every=every))
+            if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
+                print(f"step {i:4d}  loss {float(metrics['loss']):.4f}  "
+                      f"bits {float(metrics['bits']):.3e}  "
+                      f"({time.time() - t0:.1f}s)")
     if bridge is not None:
         bridge.drain()
         s = bridge.stats()
@@ -475,6 +615,14 @@ def main(argv: Optional[list] = None):
               f"{s['bytes_fraction']:.3f} of dense bytes/publish, "
               f"max staleness {s['max_staleness']} (K={args.stale_k}), "
               f"{s['tokens_served']} tokens served")
+    spans = recorder.snapshot() if recorder is not None else None
+    if sink is not None:
+        sink.emit(obs.summary_record("train", spans=spans))
+        sink.close()
+        print(obs.summary_table(obs.read_jsonl(args.metrics_out),
+                                name=args.arch))
+    if spans:
+        print(_host_spans_table(spans))
     return state
 
 

@@ -1,13 +1,20 @@
-"""The obs record schema: versioned strict-JSON records -- the part of
-the reference's ``repro/obs/metrics.py`` the serving fleet emits through
-(``event_record``), copied without its typed host metrics.
+"""The obs record schema: typed metrics + versioned strict-JSON records
+-- the port of the reference's ``repro/obs/metrics.py``.
 
-A record is a flat dict with a schema version (``v``), a ``kind`` from
-``RECORD_KINDS``, the kind's identity fields (``step`` / ``name`` /
-``run``) and a ``data`` dict of JSON scalars and nested dicts/lists.
+Everything the observability layer emits (trainer steps, transport wire
+accounting, serving-fleet events, summaries) is ONE record shape: a flat
+dict with a schema version (``v``), a ``kind`` from ``RECORD_KINDS``,
+the kind's identity fields (``step`` / ``name`` / ``run``) and a
+``data`` dict of JSON scalars and nested dicts/lists.
 ``validate_record`` enforces the shape strictly (unknown top-level keys,
-a wrong version and non-finite floats are all errors); ``sanitize_tree``
-is where inf/nan becomes ``null`` before that.
+a wrong version and non-finite floats are all errors), so a JSONL file
+that validates here validates in the reference too, and the other way
+round; ``sanitize_tree`` is where inf/nan becomes ``null`` before that.
+No record field holds wall-clock time of day.
+
+The typed metric classes (``Counter`` / ``Gauge`` / ``Histogram``) are
+host-side aggregation state for the training loops; ``Metrics`` is a tiny
+registry whose ``snapshot()`` drops straight into a record's ``data``.
 """
 
 from __future__ import annotations
@@ -154,6 +161,122 @@ def make_record(kind: str, *, run: Optional[str] = None,
     return validate_record(rec)
 
 
+def step_record(step: int, *, run: Optional[str] = None, **data) -> dict:
+    """One per-step record (loss, timings, drift norms, wire bytes...)."""
+    return make_record("step", run=run, step=step, data=data)
+
+
 def event_record(name: str, step: int, **data) -> dict:
     """One structured event (resync, publish, unresolved_whiles...)."""
     return make_record("event", name=name, step=step, data=data)
+
+
+def run_record(run: str, **data) -> dict:
+    """The run header: static facts (arch, comm mode, per-wire
+    accounting, measured hide fraction) every step record shares."""
+    return make_record("run", run=run, data=data)
+
+
+def summary_record(name: str, **data) -> dict:
+    """An end-of-run / bench aggregate."""
+    return make_record("summary", name=name, data=data)
+
+
+# ---------------------------------------------------------------------------
+# Typed host-side metrics
+# ---------------------------------------------------------------------------
+
+
+class Counter:
+    """Monotone count (events, resyncs, publishes)."""
+
+    def __init__(self):
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"Counter.inc of negative {n} (use a Gauge)")
+        self.value += n
+
+    def to_value(self):
+        return self.value
+
+
+class Gauge:
+    """Last-write-wins level (staleness, hide fraction, loss)."""
+
+    def __init__(self):
+        self.value: Optional[float] = None
+
+    def set(self, x: float) -> None:
+        self.value = float(x)
+
+    def to_value(self):
+        return None if self.value is None else finite_or_none(self.value)
+
+
+class Histogram:
+    """Streaming summary (count/sum/min/max) of an observed series —
+    enough for p50-free step-time accounting without storing samples."""
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+
+    def observe(self, x: float) -> None:
+        x = float(x)
+        if not math.isfinite(x):
+            return
+        self.count += 1
+        self.total += x
+        self.min = x if self.min is None else min(self.min, x)
+        self.max = x if self.max is None else max(self.max, x)
+
+    @property
+    def mean(self) -> Optional[float]:
+        return (self.total / self.count) if self.count else None
+
+    def to_value(self):
+        return {
+            "count": self.count,
+            "sum": finite_or_none(self.total),
+            "min": None if self.min is None else finite_or_none(self.min),
+            "max": None if self.max is None else finite_or_none(self.max),
+            "mean": None if self.mean is None else finite_or_none(self.mean),
+        }
+
+
+class Metrics:
+    """A tiny named registry of the typed metrics above.
+
+    ``snapshot()`` returns a plain dict ready for a record's ``data``;
+    metric names are created on first touch (``m.counter("resyncs")``).
+    """
+
+    def __init__(self):
+        self._metrics: Dict[str, Any] = {}
+
+    def _get(self, name: str, cls):
+        m = self._metrics.get(name)
+        if m is None:
+            m = self._metrics[name] = cls()
+        elif not isinstance(m, cls):
+            raise ValueError(
+                f"metric {name!r} already registered as "
+                f"{type(m).__name__}, requested {cls.__name__}"
+            )
+        return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._get(name, Histogram)
+
+    def snapshot(self) -> dict:
+        return {name: m.to_value() for name, m in self._metrics.items()}

@@ -346,12 +346,27 @@ def test_make_channel_builds_the_references_channel(mode):
 
 
 def test_async_channel_items_not_ported_raise():
-    """``obs`` (the StampRecorder) still raises, naming its item; since
-    item 5 was ported the channel takes ``wspecs`` and the
-    ``randk_shared`` mode, and its drained rounds are ``MeshChannel``'s
-    with them: each bucket reduces with the specs of its own leaves."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AsyncChannel(mesh=HostMesh(data=2), obs=object())
+    """Nothing of the channel raises any more: ``obs`` (the
+    ``StampRecorder``, ported with obs) stamps the ``reduce_start`` and
+    ``finish`` windows of the drained reduction and leaves its means
+    bitwise as they were; since item 5 was ported the channel takes
+    ``wspecs`` and the ``randk_shared`` mode, and its drained rounds are
+    ``MeshChannel``'s with them: each bucket reduces with the specs of
+    its own leaves."""
+    from repro_torch.obs.trace import StampRecorder
+
+    rec = StampRecorder()
+    stamped = AsyncChannel(mode="dense", mesh=HostMesh(data=2),
+                           bucket_bytes=1024, obs=rec)
+    plain = AsyncChannel(mode="dense", mesh=HostMesh(data=2),
+                         bucket_bytes=1024)
+    g = _tree(1)
+    got = stamped.reduce_mean(AddressedNoise(3, "cpu"), g)
+    want = plain.reduce_mean(AddressedNoise(3, "cpu"), g)
+    for k in want:
+        assert_bitwise(got[k], want[k], f"stamped {k}")
+    assert [n for n, _, _ in rec.events] == ["reduce_start", "finish"]
+    assert all(t1 >= t0 for _, t0, t1 in rec.events)
     from repro_torch.dist.sharding import PSpec
 
     mesh = HostMesh(data=2, model=2)
