@@ -204,6 +204,24 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    the q8 codec over the 13 W-stacked leaves bitwise equal with the
    kernels and with their plain versions; a checkpoint of the final state
    saved and restored onto the card bitwise equal.
+14. The tuner (``phase_tune``): the trainer CLI on full-size qwen3-0.6b
+   (DIANA + ``q8_block``, ``--mesh-data 4``, batch 8, seq 128, 2 steps)
+   with ``--comm_mode auto``, a fresh ``--tune-cache`` and the full
+   default grid.  The first run searches (``tune: searched``): one
+   strict-JSON plan, at least one measured candidate, exactly one
+   chosen, a finite predicted step time with a nonzero compute half (the
+   dense step's cost pass at full width); its rows, the choice, the
+   calibrated rates and link, the hide and omega probes and the pass's
+   flops and bytes are printed, with each supplier's seconds.  The
+   second run hits the cache (``tune: cache hit``) and calls no supplier
+   and no measurement (counted by wrappers); a ``--tune-plan`` run (with
+   ``--metrics_out``) and ``build_train_step`` with ``apply_plan`` run
+   in-process end bitwise equal to it; the run record carries the plan's
+   predicted step time, printed against the measured steps.  Then
+   ``launch.dryrun`` of qwen3-0.6b x train_4k and qwen2-moe-a2.7b x
+   decode_32k each end ``ok``, qwen3's ``useful_flops_frac`` in (0.3,
+   1.05].  The searched run's launches are the ``qwen3-0.6b train
+   --comm_mode auto`` entry of ``launches_by_path``.
 
 The second-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3170,6 +3188,288 @@ def phase_obs(cfg):
     return launches_on
 
 
+def check_same_state(what, name, got, want):
+    """Fail unless two train states' params, shifts, master shift and
+    bits are bitwise equal (compared on the card)."""
+    for part in ("params", "h", "h_bar"):
+        off = _tree_bitwise(getattr(got, part), getattr(want, part))
+        check(not off, f"{what}: {name} differs in {part} at {off[:4]}")
+    check(_bitwise(got.bits, want.bits), f"{what}: {name} bits differ")
+
+
+def io_capture(fn):
+    """``(fn(), its standard output)``; the output's ``tune:`` lines are
+    logged."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith("tune:"):
+            log(line)
+    return out, text
+
+
+TUNE_STEPS = 2              # steps of each --comm_mode auto run
+DRYRUNS = (("qwen3-0.6b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"))
+USEFUL_FRAC = (0.3, 1.05)   # qwen3 train_4k's 6 N D over the pass's flops
+
+
+def phase_tune(cfg):
+    """The tuner on the card (phase 14): the trainer CLI
+    (``launch.train.main``) on full-size ``cfg``, DIANA + ``q8_block``, W
+    workers over ``--mesh-data W``, batch BATCH, seq SEQ, TUNE_STEPS
+    steps, ``--comm_mode auto`` with a fresh ``--tune-cache`` and the full
+    default grid:
+
+    (a) the first run prints ``tune: searched`` and writes one strict-JSON
+        plan with at least one measured candidate and exactly one chosen,
+        a finite ``predicted_step_s`` with a nonzero compute half (the
+        cost pass of the dense step at full width); its rows, choice,
+        calibrated rates and link, hide fraction, omega and the pass's
+        flops and bytes are printed;
+    (b) a second run with the same flags prints ``tune: cache hit`` and
+        calls none of the suppliers and no measurement (each counted by
+        a wrapper here);
+    (c) a run with ``--tune-plan`` (and ``--metrics_out``) ends bitwise
+        equal to (b), and both to ``build_train_step`` run in-process
+        with ``apply_plan(comp, plan)``;
+    (d) that run's record carries the plan's ``predicted_step_s``,
+        printed against the steps' measured ``step_s``;
+    (e) ``launch.dryrun`` of qwen3-0.6b x train_4k and qwen2-moe-a2.7b x
+        decode_32k (the cost pass on the meta device) each end ``ok``,
+        qwen3's ``useful_flops_frac`` within USEFUL_FRAC.
+
+    Returns the kernels' launch counts of run (a)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.configs.base import CompressionConfig, TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.obs import read_jsonl
+    from repro_torch.tune import search
+
+    t_phase = time.perf_counter()
+    what = f"tune {cfg.name} auto q8_block"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    cache = os.path.join(tmp, "cache")
+    flags = ["--arch", cfg.name, "--steps", str(TUNE_STEPS), "--batch",
+             str(BATCH), "--seq", str(SEQ), "--compressor", "q8_block",
+             "--mesh-data", str(W), "--comm_mode", "auto"]
+    calls, secs, results = {}, {}, {}
+    # every supplier and measurement of the search, by the attribute its
+    # caller reads it through, counted and timed
+    suppliers = [(T, "dense_step_analysis"), (tune, "calibrate_rates"),
+                 (tune, "measure_overlap_hide"), (tune, "measure_omega"),
+                 (search, "calibrate_link"), (search, "measure_candidate")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in suppliers]
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+            results[name] = out
+            return out
+        return wrapper
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    captured = {}
+    analyze = T.step_cost
+
+    def kept_cost(*args, **kw):
+        captured["analysis"] = out = analyze(*args, **kw)
+        return out
+
+    T.step_cost = kept_cost
+    try:
+        # (a) the search
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        state, text = io_capture(lambda: T.main(flags + ["--tune-cache",
+                                                         cache]))
+        t_search_run = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        check("tune: searched" in text, f"{what}: no 'tune: searched' in "
+                                        f"{text[-600:]}")
+        files = os.listdir(cache)
+        check(len(files) == 1, f"{what}: plan cache holds {files}")
+        plan_path = os.path.join(cache, files[0])
+        raw = open(plan_path).read()
+        check("NaN" not in raw and "Infinity" not in raw,
+              f"{what}: the plan is not strict JSON")
+        plan = tune.load_plan(plan_path)
+        rows = plan.candidates
+        measured = [r for r in rows if r["measured_step_s"] is not None]
+        check(len(measured) >= 1 and sum(r["chosen"] for r in rows) == 1,
+              f"{what}: {len(measured)} measured rows, "
+              f"{sum(r['chosen'] for r in rows)} chosen")
+        chosen = next(r for r in rows if r["chosen"])
+        check(math.isfinite(plan.predicted_step_s)
+              and chosen["compute_s"] > 0,
+              f"{what}: predicted_step_s {plan.predicted_step_s}, compute "
+              f"half {chosen['compute_s']}")
+        analysis = captured["analysis"]
+        for name in ("dense_step_analysis", "calibrate_rates",
+                     "measure_overlap_hide", "measure_omega",
+                     "calibrate_link"):
+            check(calls.get(name) == 1, f"{what}: {name} called "
+                                        f"{calls.get(name)} times")
+        check(calls.get("measure_candidate") == len(measured),
+              f"{what}: measure_candidate called "
+              f"{calls.get('measure_candidate')} times for {len(measured)} "
+              f"measured rows")
+        ring_rows = [r["comm_mode"] for r in measured] + [plan.comm_mode]
+        fused_ring = any(m not in ("dense", "randk_shared", "q8_ring", "ef21",
+                                   "efbv") for m in ring_rows)
+        check(launches["q8_quantize_2d"] > 0
+              and launches["q8_dequant_add_2d"] > 0
+              and (launches["q8_quantize_chunk_3d"] > 0) == fused_ring,
+              f"{what}: launches {launches} (a fused-ring mode measured or "
+              f"chosen: {fused_ring})")
+        for r in rows:
+            log(f"{what}: rank {r['rank']:2d} {r['label']:<44s} predicted "
+                f"{r['predicted_step_s']:.6e} s (comm "
+                f"{r['predicted_comm_s']:.6e}, compute {r['compute_s']:.6e}, "
+                f"encode "
+                f"{r['encode_s']:.6e}; {r['n_buckets']} buckets, "
+                f"{r['wire_bytes']:.6e} B/worker)  measured comm "
+                f"{r['measured_comm_s']}  step {r['measured_step_s']}"
+                f"{'  CHOSEN' if r['chosen'] else ''}")
+        log(f"{what}: chose {plan.comm_mode} (bucket "
+            f"{plan.overlap_bucket_bytes}, randk_q {plan.randk_q}, block "
+            f"{plan.q8_block_rows}); predicted_step_s "
+            f"{plan.predicted_step_s:.6e} measured_step_s "
+            f"{plan.measured_step_s}; hide {plan.hide_fraction} "
+            f"({plan.hide_source}); omega {plan.omega} ({plan.omega_source})")
+        log(f"{what}: the dense step's cost pass (W = {W}, batch {BATCH}, "
+            f"seq {SEQ}): flops {analysis['flops']:.6e} bytes "
+            f"{analysis['bytes']:.6e} transcendentals "
+            f"{analysis['transcendentals']:.6e} collectives "
+            f"{analysis['collective_bytes_by_kind']}; 6 N D = "
+            f"{6 * cfg.param_count() * BATCH * SEQ:.6e}")
+        log(f"{what}: the search's suppliers, seconds: "
+            + ", ".join(f"{k} {v:.3f} ({calls[k]}x)" for k, v in
+                        sorted(secs.items()))
+            + f"; the whole first CLI run {t_search_run:.2f} s")
+        searched = state      # held on the card beside the next run
+        del state
+        mesh = HostMesh(data=W, device="cuda")
+        rates, link = results["calibrate_rates"], results["calibrate_link"]
+        hide, omega = (results["measure_overlap_hide"],
+                       results["measure_omega"])
+        log(f"{what}: the search's calibrated rates {rates.flops_per_s:.6e} "
+            f"FLOP/s {rates.hbm_bytes_per_s:.6e} B/s; link alpha "
+            f"{link.alpha_s:.6e} s beta {link.beta_s_per_byte:.6e} s/B; "
+            f"hide probe {hide}; omega probe {omega}")
+
+        # (b) the cache
+        before = dict(calls)
+        t0 = time.perf_counter()
+        state, text = io_capture(lambda: T.main(flags + ["--tune-cache",
+                                                         cache]))
+        t_hit_run = time.perf_counter() - t0
+        check("tune: cache hit" in text, f"{what}: no 'tune: cache hit' in "
+                                         f"{text[-600:]}")
+        check(calls == before, f"{what}: the cache hit called "
+                               f"{ {k: calls[k] - before.get(k, 0) for k in calls} }")
+        cached = state
+        del state
+        check_same_state(what, "the cached run", cached, searched)
+        del searched
+        torch.cuda.empty_cache()
+
+        # (c) the plan file, and the plan applied in-process
+        jsonl = os.path.join(tmp, "run.jsonl")
+        state, text = io_capture(lambda: T.main(
+            flags + ["--tune-plan", plan_path, "--metrics_out", jsonl]))
+        check(f"tune: plan file {plan_path}" in text,
+              f"{what}: --tune-plan not used")
+        check(calls == before, f"{what}: --tune-plan measured")
+        check_same_state(what, "--tune-plan", state, cached)
+        del state
+        torch.cuda.empty_cache()
+        comp = tune.apply_plan(CompressionConfig(compressor="q8_block",
+                                                 comm_mode="auto"), plan)
+        tcfg = TrainConfig(learning_rate=LR, total_steps=TUNE_STEPS,
+                           warmup_steps=max(1, TUNE_STEPS // 10),
+                           compression=comp)
+        state = T.init_state(0, cfg, tcfg, W, "cuda")
+        step = T.build_train_step(cfg, tcfg, W, mesh)
+        stream = TokenStream(cfg, SEQ, BATCH)
+        for i in range(TUNE_STEPS):
+            state, _ = step(state, stream.batch(i, "cuda"))
+        check_same_state(what, "build_train_step(apply_plan)", state,
+                         cached)
+        n_leaves = len(cached.params)
+        del state, step, cached
+        torch.cuda.empty_cache()
+        log(f"{what}: searched, cache-hit, --tune-plan and in-process "
+            f"apply_plan runs bitwise equal after {TUNE_STEPS} steps "
+            f"(params, h and h_bar, {n_leaves} leaves each); the cache hit "
+            f"called no supplier and measured nothing ({t_hit_run:.2f} s)")
+
+        # (d) the prediction against the steps
+        recs = read_jsonl(jsonl)
+        run_rec = recs[0]["data"]
+        check(run_rec["predicted_step_s"] == plan.predicted_step_s
+              and run_rec["hide_fraction"] == plan.hide_fraction
+              and run_rec["omega"] == plan.omega,
+              f"{what}: the run record {run_rec['predicted_step_s']}, "
+              f"{run_rec['hide_fraction']}, {run_rec['omega']} is not the "
+              f"plan's")
+        step_s = [r["data"]["step_s"] for r in recs if r["kind"] == "step"]
+        check(len(step_s) == TUNE_STEPS and all(t > 0 for t in step_s),
+              f"{what}: step records {step_s}")
+        log(f"{what}: predicted_step_s {plan.predicted_step_s:.6e} (the "
+            f"plan's, in the run record) vs measured step_s {step_s}: "
+            f"ratio predicted/measured "
+            f"{plan.predicted_step_s / step_s[-1]:.6e} (last step)")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        T.step_cost = analyze
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) the dry-run
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        for arch, shape in DRYRUNS:
+            t0 = time.perf_counter()
+            rc = dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                              out_dir])
+            rec = json.load(open(os.path.join(
+                out_dir, f"{arch}_{shape}_pod256_dense.json")))
+            check(rc == 0 and rec["status"] == "ok",
+                  f"dryrun {arch} x {shape}: {rec.get('error')}")
+            r = rec["roofline"]
+            log(f"dryrun {arch} x {shape}: ok in "
+                f"{time.perf_counter() - t0:.1f} s; flops "
+                f"{r['hlo_flops']:.6e} bytes {r['hlo_bytes']:.6e} "
+                f"useful_flops_frac {r['useful_flops_frac']:.6f} "
+                f"dominant {r['dominant']}")
+            if shape == "train_4k":
+                lo, hi = USEFUL_FRAC
+                check(lo < r["useful_flops_frac"] <= hi,
+                      f"dryrun {arch} x {shape}: useful_flops_frac "
+                      f"{r['useful_flops_frac']} outside ({lo}, {hi}]")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"the tune phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 class RecordingNoise:
     """A noise source that keeps every draw it hands out, tagged as
     ``repro_torch.comm.wire`` tags them, for a replay elsewhere."""
@@ -3560,6 +3860,8 @@ def main(argv=None):
     by_path["qwen3-0.6b serve"] = phase_serve(qwen, rwkv)
     torch.cuda.empty_cache()
     by_path["qwen3-0.6b train --metrics_out --trace"] = phase_obs(qwen)
+    torch.cuda.empty_cache()
+    by_path["qwen3-0.6b train --comm_mode auto"] = phase_tune(qwen)
     torch.cuda.empty_cache()
     phase_convex(card)
     # each kernel's launches on the path of the slice that ported it: the

@@ -23,8 +23,9 @@ its own, and a mesh with a ``pod`` axis adds the pod stage.  The
 ``ef21`` and ``efbv`` comm modes aggregate densely.  ``AsyncChannel``
 (``comm.overlap``) is the overlap runtime: the ``q8_ring_overlap`` and
 ``efbv_overlap`` modes, and ``q8_ring_fused_vjp`` with one bucket per
-leaf.  The tuner's ``auto`` raises ``NotImplementedError``, naming the
-ROADMAP item that adds it.
+leaf.  The tuner's ``auto`` is a sentinel, not a transport:
+``repro_torch.tune`` resolves it to one of these modes
+(``tune.autotune`` + ``tune.apply_plan``) before a channel is built.
 """
 
 from __future__ import annotations
@@ -49,12 +50,6 @@ from repro_torch.dist.collectives import (
 
 Tree = Dict[str, torch.Tensor]
 
-#: where each not-yet-ported comm mode comes in (ROADMAP queue 1)
-_NOT_PORTED = {
-    "auto": "ROADMAP queue 1, item 11 (tune.plan, tune.search and "
-            "autotune, with the --autotune / --tune-plan flags)",
-}
-
 #: comm modes served by the bucketed overlap runtime (``AsyncChannel``)
 OVERLAP_MODES = ("q8_ring_overlap", "efbv_overlap")
 
@@ -62,22 +57,26 @@ OVERLAP_MODES = ("q8_ring_overlap", "efbv_overlap")
 #: (``comm.fused_vjp``), reduced by the ``AsyncChannel`` one leaf a bucket
 FUSED_VJP_MODES = ("q8_ring_fused_vjp",)
 
-#: every comm mode the reference accepts: the ported ones first
+#: every comm mode ``make_channel`` accepts, the reference's
 CHANNEL_MODES = (("dense", "randk_shared", "q8_ring", "q8_ring_fused",
                   "ef21", "efbv", "sim")
-                 + OVERLAP_MODES + FUSED_VJP_MODES + tuple(_NOT_PORTED))
+                 + OVERLAP_MODES + FUSED_VJP_MODES)
 
 
-def _check_ported(mode: str):
-    """Raise for a comm mode this slice does not run: unported ones name
-    their ROADMAP item, unknown ones every accepted mode."""
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"comm mode {mode!r} is not ported yet: {_NOT_PORTED[mode]}"
+def _check_mode(mode: str):
+    """Raise for a comm mode no channel serves: the tuner's ``auto``
+    sentinel with the reference's wording, an unknown mode naming every
+    accepted one."""
+    if mode == "auto":
+        raise ValueError(
+            "comm_mode 'auto' is a tuner sentinel, not a transport: "
+            "resolve it to a concrete mode first (repro_torch.tune.autotune "
+            "+ apply_plan, or `train.py --comm_mode auto` which does both)"
         )
     if mode not in CHANNEL_MODES:
         raise ValueError(f"unknown comm mode {mode!r}; have channel modes "
-                         f"{CHANNEL_MODES}")
+                         f"{CHANNEL_MODES} (aggregation formats: "
+                         f"{AGGREGATION_MODES})")
 
 
 class Channel:
@@ -203,7 +202,7 @@ class MeshChannel(Channel):
     q8_block_rows: Optional[int] = None
 
     def __post_init__(self):
-        _check_ported(self.mode)
+        _check_mode(self.mode)
         if self.mode not in AGGREGATION_MODES:
             raise ValueError(f"{self.mode!r} is not an aggregation mode; "
                              f"have {AGGREGATION_MODES}")
@@ -238,24 +237,27 @@ def aggregation_mode_of(mode_or_cfg) -> str:
 
 
 def make_channel(mode_or_cfg="dense", mesh=None, *, randk_q: float = 0.05,
-                 wspecs=None, bucket_bytes: Optional[int] = None) -> Channel:
+                 wspecs=None, bucket_bytes: Optional[int] = None,
+                 q8_block_rows: Optional[int] = None) -> Channel:
     """Build a Channel from a comm-mode string or a CompressionConfig
     (whose ``randk_q`` sets ``randk_shared``'s keep fraction in place of
     the argument, ``q8_block_rows`` the fused ring's scale block and
-    ``overlap_bucket_bytes`` the overlap runtime's bucket budget), over
-    ``mesh`` (a ``HostMesh``; the ring
-    modes need one), with ``wspecs`` the ring's worker-stacked specs
-    (``dist.sharding``).  The overlap
+    ``overlap_bucket_bytes`` the overlap runtime's bucket budget, where
+    the arguments do not set them), over ``mesh`` (a ``HostMesh``; the
+    ring modes need one), with ``wspecs`` the ring's worker-stacked specs
+    (``dist.sharding``) and ``q8_block_rows`` the fused codec's scale
+    block (None: the kernel default).  The overlap
     modes build the bucketed ``AsyncChannel`` (``bucket_bytes`` its
     per-bucket budget in uncompressed per-worker message bytes, rejected
     for every other mode); ``q8_ring_fused_vjp`` the same channel with
-    one bucket per leaf.  A disabled config aggregates densely; unknown
-    modes raise naming every accepted mode, unported ones name their
-    ROADMAP item."""
+    one bucket per leaf.  A disabled config aggregates densely, even with
+    ``comm_mode="auto"``; ``auto`` otherwise raises (resolve it first,
+    ``repro_torch.tune``), and so do unknown modes, naming every accepted
+    one."""
     comm_mode = getattr(mode_or_cfg, "comm_mode", mode_or_cfg)
     if not getattr(mode_or_cfg, "enabled", True):
         comm_mode = "dense"
-    _check_ported(comm_mode)
+    _check_mode(comm_mode)
     overlap = comm_mode in OVERLAP_MODES + FUSED_VJP_MODES
     if bucket_bytes is not None and not overlap:
         raise ValueError(
@@ -269,9 +271,10 @@ def make_channel(mode_or_cfg="dense", mesh=None, *, randk_q: float = 0.05,
         randk_q = mode_or_cfg.randk_q
         if bucket_bytes is None:
             bucket_bytes = getattr(mode_or_cfg, "overlap_bucket_bytes", None)
+        if q8_block_rows is None:
+            q8_block_rows = getattr(mode_or_cfg, "q8_block_rows", None)
     kw = dict(mode=aggregation_mode_of(mode_or_cfg), mesh=mesh,
-              randk_q=randk_q, wspecs=wspecs,
-              q8_block_rows=getattr(mode_or_cfg, "q8_block_rows", None))
+              randk_q=randk_q, wspecs=wspecs, q8_block_rows=q8_block_rows)
     if not overlap:
         return MeshChannel(**kw)
     from repro_torch.comm.overlap import DEFAULT_BUCKET_BYTES, AsyncChannel
@@ -292,3 +295,27 @@ def resync_h_bar(h: Optional[Tree], h_bar: Optional[Tree], step: int,
     if step % every != every - 1:
         return h_bar
     return dense_mean(h)
+
+
+def collective_payload_scale(cfg, d_nominal: int = 1_000_000) -> dict:
+    """Per-collective-kind wire fraction for the step cost pass's payload
+    model (the reference's, for the same reason).
+
+    Only aggregation formats whose collective is DENSE while the protocol
+    payload is compressed need a scale.  The q8 ring's int8 payloads and
+    the shared-pattern Rand-K's K-sized values are counted at their true
+    wire size already (scale 1).  EF21 and EF-BV aggregate an exact mean
+    of DECODED messages, so their all-reduce is full width while the wire
+    carries the contractive codec's payload: scale by that codec's wire
+    fraction, derived structurally (``aot_wire_bits``).  Apply it to the
+    GRADIENT-MESSAGE share only
+    (``launch.hlo_cost.apply_gradient_payload_model``).
+    """
+    if not getattr(cfg, "enabled", True):
+        return {}
+    if getattr(cfg, "comm_mode", "dense") in ("ef21", "efbv"):
+        from repro_torch.core.compressors import aot_wire_bits, make_compressor
+
+        q = make_compressor(cfg.compressor, **dict(cfg.compressor_kwargs))
+        return {"all-reduce": aot_wire_bits(q, d_nominal) / (32.0 * d_nominal)}
+    return {}

@@ -106,11 +106,7 @@ def aggregation_wire_codec(comp):
     ``q8_block_rows`` / ``compressor`` attributes: the aggregation
     formats are charged their aggregation codec, the error-feedback
     modes their configured contractive message."""
-    from repro_torch.comm.channel import (
-        FUSED_VJP_MODES,
-        OVERLAP_MODES,
-        _check_ported,
-    )
+    from repro_torch.comm.channel import FUSED_VJP_MODES, OVERLAP_MODES
     from repro_torch.core.compressors import (
         Identity,
         Int8Stochastic,
@@ -132,7 +128,6 @@ def aggregation_wire_codec(comp):
     if mode in ("ef21", "efbv"):
         return make_compressor(comp.compressor,
                                **dict(comp.compressor_kwargs))
-    _check_ported(mode)   # "auto" names its item, an unknown mode the modes
     raise ValueError(f"no wire codec for comm mode {mode!r}")
 
 

@@ -32,7 +32,7 @@ come from one noise source; the default schedule
    every model shard of a leaf uses the same draw: the reference's
    aggregation key enters its ``shard_map`` replicated.
 
-Two sources implement this protocol, and so can any object with the
+Three sources implement this protocol, and so can any object with the
 same methods (the parity tests replay the draws the reference makes
 along its own key chain, which is how the port's round is held bit for
 bit against the reference's):
@@ -52,6 +52,9 @@ bit against the reference's):
   depend on the order of the calls, which the round fixes as listed
   above; the convex path (``core.algorithms``, ``core.iterate_comp``)
   uses it.  Its ``next_round()`` does nothing: the stream goes on.
+* ``MetaNoise``, the step's cost pass's (``launch.hlo_cost``): every
+  draw an empty meta tensor of its shape, so a round on meta tensors
+  traces its ops and draws nothing.
 """
 
 from __future__ import annotations
@@ -239,6 +242,55 @@ class AddressedNoise:
     def next_round(self) -> None:
         """Address the next round's draws."""
         self.round += 1
+
+
+class MetaNoise:
+    """The noise source of the step's cost pass (``launch.hlo_cost``): every
+    draw of ``AddressedNoise``'s protocol, as an empty tensor of its shape
+    and dtype on the meta device -- the ops a round runs on its draws are
+    traced, and no value is drawn."""
+
+    device = torch.device("meta")
+    round = 0
+
+    def _u(self, shape):
+        return torch.empty(shape, dtype=torch.float32, device=self.device)
+
+    def _p(self, d):
+        return torch.empty((d,), dtype=torch.int64, device=self.device)
+
+    def uniform(self, leaf, worker, shape, part=None):
+        return self._u(shape)
+
+    def permutation(self, leaf, worker, d, part=None):
+        return self._p(d)
+
+    def aux_uniform(self, shape):
+        return self._u(shape)
+
+    def ring_uniform(self, leaf, hop, shape):
+        return self._u(shape)
+
+    def pod_uniform(self, leaf, shape):
+        return self._u(shape)
+
+    def shared_permutation(self, leaf, d):
+        return self._p(d)
+
+    def send_uniform(self, address, shape):
+        return self._u(shape)
+
+    def send_permutation(self, address, d):
+        return self._p(d)
+
+    def stream(self, name: str) -> "MetaNoise":
+        return self
+
+    def at_round(self, r: int) -> "MetaNoise":
+        return self
+
+    def next_round(self) -> None:
+        """Nothing: meta draws have no rounds."""
 
 
 @dataclass(frozen=True)

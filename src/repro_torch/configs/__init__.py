@@ -18,7 +18,13 @@ from repro_torch.configs import (
     seamless_m4t_large_v2,
     zamba2_12b,
 )
-from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
+from repro_torch.configs.base import (
+    INPUT_SHAPES,
+    CompressionConfig,
+    InputShape,
+    ModelConfig,
+    TrainConfig,
+)
 
 _MODULES = {     # the reference's order
     "rwkv6-3b": rwkv6_3b,
@@ -35,8 +41,8 @@ _MODULES = {     # the reference's order
 
 ARCH_IDS = tuple(_MODULES)
 
-__all__ = ["ARCH_IDS", "CompressionConfig", "ModelConfig", "TrainConfig",
-           "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "CompressionConfig", "INPUT_SHAPES", "InputShape",
+           "ModelConfig", "TrainConfig", "get_config", "get_smoke_config"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -3,7 +3,8 @@
 A copy of the reference's ``repro/configs/base.py`` (the port imports
 nothing of the JAX package), with the same fields and defaults so a
 config means the same run on both sides.  ``CompressionConfig.make``
-builds the port's codec and shift rule.
+builds the port's codec and shift rule.  ``InputShape`` and
+``INPUT_SHAPES`` are the dry-run's input shapes.
 """
 
 from __future__ import annotations
@@ -85,16 +86,38 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+#: the dry-run's input shapes, the reference's
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class CompressionConfig:
     """How the DCGD-SHIFT layer is wired into the training step (same
-    fields as the reference).  The port runs the ``dense``, ``q8_ring``,
-    ``q8_ring_fused``, ``ef21``, ``efbv``, ``sim``, ``q8_ring_overlap``,
-    ``efbv_overlap`` and ``q8_ring_fused_vjp`` comm modes (the overlap
-    modes' bucket budget is ``overlap_bucket_bytes``), the
+    fields as the reference).  The port runs the ``dense``,
+    ``randk_shared``, ``q8_ring``, ``q8_ring_fused``, ``ef21``, ``efbv``,
+    ``sim``, ``q8_ring_overlap``, ``efbv_overlap`` and
+    ``q8_ring_fused_vjp`` comm modes (the overlap modes' bucket budget is
+    ``overlap_bucket_bytes``); ``auto`` is the tuner's sentinel, resolved
+    to one of them by ``repro_torch.tune`` before a channel is built; the
     ``fixed``/``dcgd``/``diana``/``rand_diana``/``ef21``/``efbv``/
-    ``vr_gdci`` rules and the ``identity``/``zero``/``int8``/``q8_block``/
-    ``natural``/``topk``/``randk`` codecs; the other values raise
-    ``NotImplementedError`` where they are resolved."""
+    ``vr_gdci`` rules and every codec of the reference's registry;
+    unknown values raise ``ValueError`` where they are resolved."""
     enabled: bool = True
     compressor: str = "natural"
     compressor_kwargs: tuple = ()  # tuple of (key, value) pairs (hashable)
@@ -134,7 +157,7 @@ class CompressionConfig:
         if self.comm_mode == "auto":
             raise ValueError(
                 "comm_mode 'auto' has no aggregation format until the "
-                "tuner resolves it (repro.tune.autotune + apply_plan)"
+                "tuner resolves it (repro_torch.tune.autotune + apply_plan)"
             )
         from repro_torch.comm.channel import aggregation_mode_of
 

@@ -6,7 +6,8 @@ uniform start token and noise ``n_t`` in [0, 97), drawn from a
 ``torch.Generator`` seeded from ``(seed, step)`` -- so every batch is a
 pure function of its step.  The draws are torch's: for the same seed the
 tokens differ from the reference's (the parity tests feed both sides
-one numpy batch instead).
+one numpy batch instead).  ``make_batch_specs`` gives a TRAIN batch's
+shapes as meta tensors, the dry-run's inputs.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 
 
 @dataclass(frozen=True)
@@ -63,3 +64,25 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, seq_len: int,
             (batch, seq_len, cfg.d_model), generator=gen,
             dtype=torch.float32) * 0.02).to(device)
     return out
+
+
+def make_batch_specs(cfg: ModelConfig,
+                     shape: InputShape) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of a TRAIN batch of
+    ``shape`` -- the dry-run path (no allocation; the reference's
+    ``ShapeDtypeStruct`` specs, the tokens in the port's int64).  Decode
+    specs live in ``launch.serve``."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    text = max(2, s - cfg.num_prefix_tokens) \
+        if cfg.modality == "vision_prefix" else s
+    specs = {"tokens": torch.empty((b, text), dtype=torch.int64,
+                                   device=meta)}
+    if cfg.modality == "vision_prefix":
+        specs["prefix"] = torch.empty(
+            (b, cfg.num_prefix_tokens, cfg.d_model), dtype=torch.float32,
+            device=meta)
+    if cfg.is_encoder_decoder:
+        specs["frames"] = torch.empty((b, s, cfg.d_model),
+                                      dtype=torch.float32, device=meta)
+    return specs

@@ -9,6 +9,7 @@ full-batch gradient.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -42,15 +43,26 @@ def per_worker_grads(loss_fn: Callable, params: Dict[str, torch.Tensor],
     wgrads = {k: torch.empty((w, *p.shape), dtype=p.dtype, device=p.device)
               for k, p in params.items()}
     losses, metrics = [], []
-    for j in range(w):
-        with torch.enable_grad():
-            loss, aux = loss_fn(leaves, {k: v[j] for k, v in wbatch.items()})
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        for buf, g in zip(wgrads.values(), grads):
-            buf[j].copy_(g)
-        del grads
-        losses.append(loss.detach())
-        metrics.append({k: v.detach() for k, v in aux.items()})
+    # under the step's cost pass (meta tensors, ``launch.hlo_cost``) the
+    # workers' passes are identical: one is traced and charged w times
+    from repro_torch.launch import hlo_cost
+
+    traced = hlo_cost.tracing(next(iter(wgrads.values())))
+    loop = (hlo_cost.repeated(w, "workers") if traced
+            else contextlib.nullcontext())
+    with loop:
+        for j in range(1 if traced else w):
+            with torch.enable_grad():
+                loss, aux = loss_fn(leaves,
+                                    {k: v[j] for k, v in wbatch.items()})
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            for buf, g in zip(wgrads.values(), grads):
+                buf[j].copy_(g)
+            del grads
+            losses.append(loss.detach())
+            metrics.append({k: v.detach() for k, v in aux.items()})
+    if traced:
+        losses, metrics = losses * w, metrics * w
     loss = torch.stack(losses).mean()
     mean_metrics = {k: torch.stack([m[k] for m in metrics]).mean()
                     for k in metrics[0]}

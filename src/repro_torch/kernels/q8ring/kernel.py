@@ -6,8 +6,9 @@ replace the reference's Pallas TPU kernels of the same names
 ``csrc/q8ring.cu``; their plain PyTorch versions are in ``ref.py``.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs
-the plain version, a CUDA tensor launches the kernel on the current
-stream or raises -- there is no fallback.  Each wrapper counts its
+the plain version (and so does a meta tensor, in the step's cost pass),
+a CUDA tensor launches the kernel on the current stream or raises --
+there is no fallback.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches`` (a plain int, incremented only
 where the kernel is launched), so a run can show that its main path went
 through the kernel; ``q8_dequant_add_2d.acc_launches`` counts those of
@@ -83,9 +84,12 @@ def _tiles(r: int, lane: int, block_rows: int) -> int:
 
 
 def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    """``cuda`` launches the kernel; ``cpu`` runs the plain version, and
+    so does ``meta`` (the step's cost pass, ``launch.hlo_cost``: the
+    plain version's arithmetic on shapes)."""
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
+    return "cpu" if t.device.type == "meta" else t.device.type
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -135,6 +139,8 @@ def q8_quantize_chunk_3d(chunks: torch.Tensor, u: torch.Tensor,
     _check("u", u, torch.float32, (r, LANE), chunks.device, 16)
     _check("chunk_id", chunk_id.reshape(-1), torch.int32, (1,),
            chunks.device, 4)
+    if chunks.device.type == "meta":   # no id to read: any chunk's cost
+        return q8_quantize_ref(chunks[0], u, block=block_rows)
     if _device_kind(chunks) == "cpu":
         return q8_quantize_chunk_ref(chunks, u, chunk_id.item(),
                                      block=block_rows)

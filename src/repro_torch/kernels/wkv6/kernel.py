@@ -9,7 +9,9 @@ the port's own (the TPU kernel has none).  Their CUDA source is
 
 Dispatch is by the tensors' device and nothing else: CPU tensors run the
 plain versions, CUDA tensors launch the kernel on the current stream or
-raise -- there is no fallback.  Each wrapper counts its kernel launches
+raise -- there is no fallback.  Meta tensors (the step's cost pass,
+``launch.hlo_cost``) trace one step of the plain recurrence, charged T
+times.  Each wrapper counts its kernel launches
 in ``<wrapper>.launches`` (a plain int, incremented only where the kernel
 is launched).
 """
@@ -83,9 +85,22 @@ def _shapes(r, v):
     if bh < 1 or t < 1 or dk not in DIMS or dv not in DIMS:
         raise ValueError(f"expected BH, T >= 1 and K, V in {DIMS}; got "
                          f"BH={bh}, T={t}, K={dk}, V={dv}")
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {r.device}")
     return bh, t, dk, dv
+
+
+def _meta_steps(ref, t: int, outs, xs, rest=()):
+    """The step's cost pass (``launch.hlo_cost``, meta tensors): the plain
+    recurrence's T steps dispatch identical ops, so one step (the inputs'
+    first time slice) is traced and charged T times; returns empty
+    outputs shaped ``outs`` (``(shape, dtype)``; None stays None)."""
+    from repro_torch.launch import hlo_cost
+
+    with hlo_cost.repeated(t, "wkv6_steps"):
+        ref(*(x[:, :1] for x in xs), *rest)
+    return tuple(None if o is None else
+                 torch.empty(o[0], dtype=o[1], device="meta") for o in outs)
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -111,6 +126,13 @@ def wkv6_forward(r, k, v, w, u, *, checkpoints: bool = False,
                            ("w", w, (bh, t, dk))):
         _check(name, x, (r.dtype,), shape, dev)
     _check("u", u, (torch.float32,), (bh, dk), dev)
+    if dev.type == "meta":
+        f32 = torch.float32
+        return _meta_steps(
+            lambda *a: wkv6_fwd_ref(*a, checkpoints=checkpoints), t,
+            (((bh, t, dv), f32), ((bh, dk, dv), f32),
+             ((bh, n_ckpt(t), dk, dv), f32) if checkpoints else None),
+            (r, k, v, w), (u,))
     if dev.type == "cpu":
         return wkv6_fwd_ref(r, k, v, w, u, checkpoints=checkpoints)
     r, k, v, w = map(_aligned, (r, k, v, w))
@@ -150,6 +172,12 @@ def wkv6_backward(r, k, v, w, u, ckpt, dy,
         _check(name, x, f32, shape, dev)
     if ds_fin is not None:
         _check("ds_fin", ds_fin, f32, (bh, dk, dv), dev)
+    if dev.type == "meta":
+        return _meta_steps(
+            lambda r_, k_, v_, w_, dy_: wkv6_bwd_ref(r_, k_, v_, w_, u, dy_,
+                                                     ds_fin), t,
+            tuple((tuple(x.shape), x.dtype) for x in (r, k, v, w, u)),
+            (r, k, v, w, dy))
     if dev.type == "cpu":
         return wkv6_bwd_ref(r, k, v, w, u, dy, ds_fin)
     r, k, v, w, ckpt, dy = map(_aligned, (r, k, v, w, ckpt, dy))

@@ -47,10 +47,15 @@ class _WKV6(torch.autograd.Function):
 
 def wkv6(r, k, v, w, u):
     """Model-layout WKV6 from a zero state.  r, k, w: (B, T, H, K); v:
-    (B, T, H, V); u: (H, K).  Returns ``(y (B, T, H, V) f32, s_final
-    (B, H, K, V) f32)``."""
+    (B, T, H, V); u: (H, K); mixed dtypes are widened to f32.  Returns
+    ``(y (B, T, H, V) f32, s_final (B, H, K, V) f32)``."""
     b, t, h, dk = r.shape
     dv = v.shape[-1]
+    if len({x.dtype for x in (r, k, v, w)}) > 1:
+        # a bf16 model's r, k, v beside its f32 decay: the kernels take
+        # one dtype, and widening to f32 is exact (the recurrence runs in
+        # f32 either way)
+        r, k, v, w = (x.to(torch.float32) for x in (r, k, v, w))
 
     def to_bh(x):
         return x.transpose(1, 2).reshape(b * h, t, x.shape[-1]).contiguous()

@@ -10,8 +10,8 @@ and the device their positions live on.  The ring collectives
 device: a hop hands a position's payload to the next position of its
 ``data`` ring, each ``model`` shard of a leaf runs a ring of its own,
 and the ``pod`` stage sums the pods' rings.  ``make_production_mesh``
-(256 or 512 positions) belongs to the dry-run (ROADMAP queue 1, item 11)
-and is not here.
+is the reference's production layout (16 x 16 or 2 x 16 x 16 positions),
+on the meta device: the dry-run's mesh (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -72,6 +72,14 @@ def make_host_mesh(device) -> HostMesh:
     device = torch.device(device)
     n = torch.cuda.device_count() if device.type == "cuda" else 1
     return HostMesh(data=n, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """16 x 16 = 256 positions ("data", "model"); ``multi_pod`` prepends a
+    2-way "pod" axis (512 positions).  Every position is on the meta
+    device: the dry-run traces shapes and runs nothing."""
+    return HostMesh(data=16, device="meta", model=16,
+                    pod=2 if multi_pod else None)
 
 
 def n_workers(mesh: HostMesh) -> int:

@@ -11,9 +11,8 @@ Decode-shape policy (the reference's): ``decode_32k`` uses the
 full-length cache; ``long_500k`` the native O(1) state for ssm and an
 8192-token sliding-window ring cache for every attention-bearing arch;
 the audio enc-dec skips ``long_500k``.  ``decode_state_pspecs`` gives the
-decode state's partition specs on a mesh (``dist.sharding``); the
-reference's dry-run surface ``decode_specs`` comes with ROADMAP queue 1,
-item 11.
+decode state's partition specs on a mesh (``dist.sharding``);
+``decode_specs`` the dry-run's decode inputs, on the meta device.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \\
           [--smoke] [--batch B] [--prompt-len P] [--gen-len G] \\
@@ -69,6 +68,25 @@ def build_serve_step(cfg: ModelConfig):
     def serve_step(params, state, tok, pos: int):
         return M.decode_step(params, cfg, tok, state, pos)
     return serve_step
+
+
+def decode_specs(cfg: ModelConfig, seq_len: int, global_batch: int):
+    """``(params, state, tok, pos)`` for one decode step at ``seq_len`` --
+    the dry-run's inputs: params and state as meta tensors (the
+    reference's ``ShapeDtypeStruct`` specs), ``tok`` (B, 1) int64 on meta,
+    and ``pos`` the host int the port's decode step takes (the last
+    position of the cache, ``seq_len - 1``; the reference's is a traced
+    scalar)."""
+    meta = torch.device("meta")
+    cache_len = cache_len_for(cfg, seq_len)
+    enc_len = seq_len if cfg.is_encoder_decoder else 0
+    params = {path: torch.empty(shape, dtype=M.leaf_dtype(cfg, init),
+                                device=meta)
+              for path, shape, init in M.param_specs(cfg)}
+    state = M.make_decode_state(cfg, global_batch, cache_len, meta,
+                                enc_len=enc_len)
+    tok = torch.empty((global_batch, 1), dtype=torch.int64, device=meta)
+    return params, state, tok, seq_len - 1
 
 
 def decode_state_pspecs(state_shapes, mesh) -> dict:

@@ -47,13 +47,28 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--shift-rule diana|rand_diana|vr_gdci|...] \
           [--comm-mode dense|randk_shared|q8_ring|q8_ring_fused|ef21|
                        efbv|q8_ring_overlap|efbv_overlap|
-                       q8_ring_fused_vjp] \
+                       q8_ring_fused_vjp|auto] [--autotune] \
+          [--tune-plan PLAN.json] [--tune-cache DIR] \
+          [--tune-modes MODE,MODE,...] \
           [--drift-resync-every N] [--efbv-eta ETA] [--efbv-nu NU] \
           [--moe-wire none|dense|q8|...] [--act-wire none|dense|q8|...] \
           [--model-wire none|dense|q8|natural|... [--publish_every N] \
            [--serve_fleet N] [--stale_k K]] \
           [--lr LR] [--no-compression] [--device cuda|cpu] \
           [--mesh-data N] [--metrics_out RUN.jsonl] [--trace]
+
+``--comm-mode auto`` resolves through ``repro_torch.tune``
+(``resolve_comm_auto``): fingerprint the (model x mesh x world size x
+compressor x search space) workload, reuse the cached ``TunePlan`` on a
+hit, otherwise run the dense step's cost pass (``step_cost``, on the
+meta device), calibrate the device rates and an alpha-beta link model by
+timed micro-reduces of the real leaf shapes, measure the overlap hide
+and the codec's variance, rank every candidate plan by predicted step
+time, verify the top few by measurement, and persist the winner (strict
+JSON under ``--tune-cache``).  ``--autotune`` forces a fresh search even
+on a hit; ``--tune-plan`` applies an explicit plan file; ``--tune-modes``
+restricts the candidate grid.  With ``--metrics_out`` the run record
+carries the plan's predicted step time, hide fraction and omega.
 
 The worker count is the size of the host mesh's ``data`` axis, as in the
 reference: the CUDA device count, or 1 on the CPU; ``--mesh-data N``
@@ -64,6 +79,7 @@ reference's emulated devices).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from contextlib import nullcontext
 from typing import Any, NamedTuple, Optional
@@ -83,13 +99,18 @@ from repro_torch.comm.transport import (
     WorkerWireNoise,
     build_transport,
 )
-from repro_torch.comm.wire import AddressedNoise
+from repro_torch.comm.wire import AddressedNoise, MetaNoise
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import CompressionConfig, ModelConfig, TrainConfig
+from repro_torch.configs.base import (
+    CompressionConfig,
+    InputShape,
+    ModelConfig,
+    TrainConfig,
+)
 from repro_torch.core.compressors import ShapeDtype, f32_bits
 from repro_torch.core.iterate_comp import VRGDCI
 from repro_torch.core.shift_rules import SHIFT_RULES, residual_sq_diag
-from repro_torch.data.tokens import TokenStream
+from repro_torch.data.tokens import TokenStream, make_batch_specs
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import dense_mean
 from repro_torch.dist.sharding import (
@@ -105,7 +126,7 @@ from repro_torch.models import model as M
 from repro_torch.optim.optimizers import OptState, make_optimizer
 
 #: CLI comm modes: the channel registry minus the reference-only
-#: parameter server (unported modes raise from ``make_channel``)
+#: parameter server (the CLI adds the tuner's ``auto``)
 COMM_MODES = tuple(m for m in CHANNEL_MODES if m != "sim")
 
 #: CLI shift rules, the reference's: the registry minus the oracle rule
@@ -132,11 +153,19 @@ class TrainState(NamedTuple):
 def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
                device=None) -> TrainState:
     """Params from ``seed``, the round noise from ``seed + 1``, zero
-    moments and shifts; on the CUDA device unless ``device`` says else."""
+    moments and shifts; on the CUDA device unless ``device`` says else.
+    On the meta device (the step's cost pass, ``launch.hlo_cost``) the
+    state is shapes only and its noise draws nothing (``MetaNoise``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = M.init_params(cfg, generator=gen, device=dev)
+    if dev.type == "meta":
+        params = {k: torch.empty(p.shape, dtype=p.dtype, device=dev)
+                  for k, p in params_like(cfg).items()}
+        noise = MetaNoise()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = M.init_params(cfg, generator=gen, device=dev)
+        noise = AddressedNoise(seed + 1, dev)
     opt = make_optimizer(tcfg).init(params)
     comp = tcfg.compression
     if comp.enabled:
@@ -144,8 +173,7 @@ def init_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig, w: int,
         h, h_bar = rule.init(params, w), rule.init_bar(params)
     else:
         h = h_bar = None
-    return TrainState(params, opt, h, h_bar, AddressedNoise(seed + 1, dev),
-                      0, f32_bits())
+    return TrainState(params, opt, h, h_bar, noise, 0, f32_bits())
 
 
 def worker_loss(cfg: ModelConfig, rule=None, q=None, wires=None):
@@ -370,6 +398,119 @@ def batch_pspecs(batch_shapes, mesh) -> dict:
     return {k: PSpec(axes) for k in batch_shapes}
 
 
+def step_cost(cfg: ModelConfig, tcfg: TrainConfig, w: int,
+              mesh: Optional[HostMesh], batch: dict, *,
+              table: Optional[dict] = None,
+              counts: Optional[dict] = None) -> dict:
+    """The cost pass (``launch.hlo_cost``) over one train step of
+    ``tcfg`` with ``w`` workers over ``mesh`` (``None``: one position),
+    its state and ``batch`` (``{name: tensor}``, any device: only the
+    shapes are read) on the meta device; the round's collectives from the
+    channel's structural accounting (``counts`` receives how many, by
+    kind).  Raises where the step cannot run on meta."""
+    from repro_torch.launch import hlo_cost
+
+    meta = torch.device("meta")
+    mmesh = None if mesh is None else dataclasses.replace(mesh, device=meta)
+    state = init_state(0, cfg, tcfg, w, meta)
+    step = build_train_step(cfg, tcfg, w, mmesh)
+    like = params_like(cfg)
+    wlike = {k: ShapeDtype((w, *p.shape), p.dtype, meta)
+             for k, p in like.items()}
+    wspecs = (None if mmesh is None
+              else worker_stacked_pspecs(mmesh, like, w))
+    coll = hlo_cost.round_collective_bytes(tcfg.compression, wlike, mmesh,
+                                           wspecs=wspecs, counts=counts)
+    mbatch = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device=meta)
+              for k, v in batch.items()}
+    return hlo_cost.analyze(step, state, mbatch, collectives=coll,
+                            table=table)
+
+
+def dense_step_analysis(cfg: ModelConfig, mesh: Optional[HostMesh], w: int,
+                        lr: float, batch: int, seq: int) -> Optional[dict]:
+    """The cost pass over THIS run's train step with compression disabled
+    -- the compute/memory time every tuner candidate shares, so the
+    overlap candidates' hide credit is charged against the real backward
+    pass.  The port's ``w`` workers take turns on one card, so the count
+    covers all of them (the reference's counts one device's share of its
+    SPMD program).  Returns None (with a printed warning) if the step
+    cannot be traced here -- the search then ranks by comm time alone, as
+    the reference's does."""
+    try:
+        tcfg = TrainConfig(learning_rate=lr,
+                           compression=CompressionConfig(enabled=False))
+        shapes = make_batch_specs(cfg, InputShape("tune", seq, batch,
+                                                  "train"))
+        return step_cost(cfg, tcfg, w, mesh, shapes)
+    except Exception as e:  # noqa: BLE001 -- tuning must not kill training
+        print(f"tune: WARNING: dense-step cost analysis failed "
+              f"({type(e).__name__}: {e}); ranking candidates by comm time "
+              f"only (overlap modes get no compute-hide credit)")
+        return None
+
+
+def resolve_comm_auto(comp: CompressionConfig, cfg: ModelConfig,
+                      mesh: HostMesh, w: int, *, plan_path=None,
+                      cache_dir=None, force=False, tune_modes=None,
+                      lr: float = 3e-4, batch: int = 8, seq: int = 128,
+                      obs_sink=None):
+    """Resolve ``comm_mode='auto'`` (or an explicit ``--tune-plan`` /
+    ``--autotune`` request) through ``repro_torch.tune``, printing what
+    happened -- the fingerprint, whether the plan came from the cache,
+    and the chosen knobs.  Returns ``(resolved CompressionConfig,
+    TunePlan)``.  On a cache miss the search's suppliers run, lazily: the
+    dense step's cost pass, the device rates, the MEASURED overlap hide
+    fraction and the MEASURED compressor variance, on the mesh's
+    device."""
+    from repro_torch import tune
+    from repro_torch.core.compressors import make_compressor
+
+    if plan_path:
+        plan = tune.load_plan(plan_path)
+        source = f"plan file {plan_path}"
+    else:
+        device = mesh.device
+        modes = (tuple(m for m in tune_modes.split(",") if m)
+                 if tune_modes else None)
+        like = params_like(cfg)
+        wlike = {k: ShapeDtype((w, *p.shape), p.dtype, p.device)
+                 for k, p in like.items()}
+        codec = make_compressor(comp.compressor,
+                                **dict(comp.compressor_kwargs))
+        plan, hit = tune.autotune(
+            comp, like, mesh, w,
+            cache_dir=(cache_dir or tune.DEFAULT_CACHE_DIR),
+            force=force, modes=modes,
+            # evaluated LAZILY on a cache miss only
+            analysis_fn=lambda: dense_step_analysis(cfg, mesh, w, lr, batch,
+                                                    seq),
+            rates_fn=lambda: tune.calibrate_rates(device=device),
+            hide_fn=lambda: tune.measure_overlap_hide(
+                mesh, wlike, cap_bytes=1 << 20, iters=2),
+            omega_fn=lambda: (tune.measure_omega(
+                codec, wlike, mesh=mesh, cap_bytes=1 << 20, iters=2,
+                device=device) if hasattr(codec, "omega") else None),
+            obs_sink=obs_sink,
+        )
+        source = "cache hit" if hit else "searched"
+    resolved = tune.apply_plan(comp, plan)
+    measured = (f"{plan.measured_step_s:.3e}s"
+                if plan.measured_step_s is not None else "n/a")
+    hide = (f"{plan.hide_fraction:.2f} ({plan.hide_source})"
+            if plan.hide_fraction is not None else plan.hide_source)
+    omega = (f"{plan.omega:.3g} ({plan.omega_source})"
+             if plan.omega is not None else plan.omega_source)
+    print(f"tune: {source}  fingerprint={plan.fingerprint[:12]}  "
+          f"-> comm_mode={resolved.comm_mode} "
+          f"bucket={resolved.overlap_bucket_bytes} "
+          f"randk_q={resolved.randk_q:g} "
+          f"q8_block={resolved.q8_block_rows} "
+          f"(predicted {plan.predicted_step_s:.3e}s, measured {measured}, "
+          f"hide {hide}, omega {omega})")
+    return resolved, plan
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The CLI's flags: the reference's for what the port runs, with the
     reference's defaults."""
@@ -384,13 +525,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shift-rule", "--shift_rule", dest="shift_rule",
                     default="diana", choices=list(SHIFT_RULE_CHOICES))
     ap.add_argument("--comm-mode", "--comm_mode", dest="comm_mode",
-                    default="dense", choices=list(COMM_MODES),
+                    default="dense", choices=list(COMM_MODES) + ["auto"],
                     help="channel aggregation format; ef21/efbv select the "
                          "error-feedback modes (implying their rule); "
                          "q8_ring_overlap/efbv_overlap the bucketed overlap "
                          "runtime over the fused q8 ring (efbv_overlap "
                          "implying efbv); q8_ring_fused_vjp encodes the "
-                         "messages in the backward pass")
+                         "messages in the backward pass; 'auto' resolves "
+                         "through the repro_torch.tune cost-model search "
+                         "(cached by fingerprint)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="force a fresh tune search even when a cached "
+                         "plan matches this workload's fingerprint")
+    ap.add_argument("--tune-plan", "--tune_plan", dest="tune_plan",
+                    default=None,
+                    help="apply an explicit TunePlan JSON (skips the "
+                         "search and the cache)")
+    ap.add_argument("--tune-cache", "--tune_cache", dest="tune_cache",
+                    default=None,
+                    help="plan-cache directory (default experiments/tune)")
+    ap.add_argument("--tune-modes", "--tune_modes", dest="tune_modes",
+                    default=None,
+                    help="comma-separated subset of tunable comm modes to "
+                         "search (keeps measured candidates tiny in CI)")
     ap.add_argument("--drift-resync-every", "--drift_resync_every",
                     dest="drift_resync_every", type=int, default=0,
                     help="every N rounds resync h_bar from a dense reduce "
@@ -486,11 +643,17 @@ def main(argv: Optional[list] = None):
     w = n_workers(mesh)
     if args.batch % w:
         raise SystemExit(f"--batch must be divisible by {w} workers")
-    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                       warmup_steps=max(1, args.steps // 10),
-                       compression=comp)
+    if (args.autotune or args.tune_plan) and args.comm_mode != "auto":
+        # an explicit concrete --comm_mode would be SILENTLY replaced by
+        # the plan: overriding it is an explicit opt-in
+        raise SystemExit(
+            "--autotune/--tune_plan replace the communication plan; they "
+            "require --comm_mode auto (you passed "
+            f"--comm_mode {args.comm_mode})"
+        )
     # the sink and the recorder exist only with observability on: obs is
-    # not imported otherwise
+    # not imported otherwise; the sink exists BEFORE plan resolution so
+    # the search's warning events land in --metrics_out
     obs_on = args.metrics_out is not None
     sink = recorder = None
     if obs_on or args.trace:
@@ -500,6 +663,23 @@ def main(argv: Optional[list] = None):
             sink = obs.JsonlSink(args.metrics_out)
         if args.trace:
             recorder = obs.SpanRecorder()
+
+    plan = None
+    if comp.enabled and comp.comm_mode == "auto":
+        comp, plan = resolve_comm_auto(
+            comp, cfg, mesh, w, plan_path=args.tune_plan,
+            cache_dir=args.tune_cache, force=args.autotune,
+            tune_modes=args.tune_modes, lr=args.lr, batch=args.batch,
+            seq=args.seq, obs_sink=sink)
+        # an explicit CLI wire flag beats the plan's (plans searched with
+        # the default grids pin every wire to 'none')
+        for flag in ("moe_wire", "act_wire", "model_wire"):
+            if getattr(args, flag) != "none":
+                comp = dataclasses.replace(comp,
+                                           **{flag: getattr(args, flag)})
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       warmup_steps=max(1, args.steps // 10),
+                       compression=comp)
 
     state = init_state(0, cfg, tcfg, w, device)
     step_fn = build_train_step(cfg, tcfg, w, mesh, diag=obs_on)
@@ -513,12 +693,14 @@ def main(argv: Optional[list] = None):
     if obs_on:
         from repro_torch import tune
 
-        # the predicted step time of the measured-vs-predicted ledger: a
-        # nominal comm-only prediction (no compute analysis: the gap is
-        # the point, not a problem)
+        # the predicted step time of the measured-vs-predicted ledger: the
+        # plan's when the tuner picked the mode, else a nominal comm-only
+        # prediction (no compute analysis: the gap is the point)
         wlike = {k: ShapeDtype((w, *p.shape), p.dtype, p.device)
                  for k, p in params_like(cfg).items()}
-        if comp.enabled and comp.comm_mode in tune.TUNABLE_MODES:
+        if plan is not None:
+            predicted_step_s = plan.predicted_step_s
+        elif comp.enabled and comp.comm_mode in tune.TUNABLE_MODES:
             cand = tune.Candidate(
                 comp.comm_mode,
                 bucket_bytes=comp.overlap_bucket_bytes,
@@ -532,9 +714,13 @@ def main(argv: Optional[list] = None):
                 cand, wlike, tune.LinkModel.nominal(), w).step_s
         # run header: per-wire telemetry (structural bits AND payload
         # bytes, measured codec timings and quality) + the measured
-        # overlap hide
-        m = tune.measure_overlap_hide(mesh, wlike, cap_bytes=1 << 20,
-                                      iters=2)
+        # overlap hide (the plan's, when the tuner measured it)
+        if plan is not None and plan.hide_fraction is not None:
+            hide_fraction, hide_source = plan.hide_fraction, plan.hide_source
+        else:
+            m = tune.measure_overlap_hide(mesh, wlike, cap_bytes=1 << 20,
+                                          iters=2)
+            hide_fraction, hide_source = m.hide_fraction, m.source
         sink.emit(obs.run_record(
             "train",
             arch=args.arch,
@@ -543,10 +729,11 @@ def main(argv: Optional[list] = None):
             shift_rule=comp.effective_shift_rule if comp.enabled else None,
             steps=args.steps,
             wires=acct.obs_snapshot(timed=True, quality=True, device=device),
-            hide_fraction=m.hide_fraction,
-            hide_source=m.source,
-            omega=None,
-            omega_source="analytic",
+            hide_fraction=hide_fraction,
+            hide_source=hide_source,
+            omega=plan.omega if plan is not None else None,
+            omega_source=(plan.omega_source if plan is not None
+                          else "analytic"),
             predicted_step_s=predicted_step_s,
         ))
 

@@ -168,8 +168,19 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     return params
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    return sum(math.prod(shape) for _, shape, _ in param_specs(cfg))
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count; ``active_only`` counts a MoE's routed experts at
+    ``experts_per_token / n_experts`` (the params a token runs through),
+    each leaf truncated to an int as the reference's."""
+    frac = (cfg.experts_per_token / cfg.n_experts
+            if active_only and cfg.is_moe else 1.0)
+    total = 0
+    for path, shape, _ in param_specs(cfg):
+        names = path.split("/")
+        routed = (any(n in ("w_gate", "w_up", "w_down") for n in names)
+                  and "moe" in names and "shared" not in names)
+        total += int(math.prod(shape) * (frac if routed else 1.0))
+    return total
 
 
 # --------------------------------------------------------------------------

@@ -16,8 +16,9 @@ launch count) is what transfers.
 ``calibrate_rates`` times an f32 matmul (TF32 off, as the port runs)
 and a big elementwise pass for the flop/s and memory bytes/s the
 compute half of the predictor divides by.  ``LinkModel.nominal()`` /
-``DeviceRates.nominal()`` are an NVIDIA H100's published numbers for
-paths where nothing is timed.
+``DeviceRates.nominal(dtype)`` are an NVIDIA H100's published numbers
+for paths where nothing is timed (the flop rate is the peak for the
+dtype the products run in).
 
 Every timed call goes through ``time_fn``, which synchronises the
 device before each clock read and after each call: PyTorch returns once
@@ -64,10 +65,19 @@ class DeviceRates:
     hbm_bytes_per_s: float
 
     @classmethod
-    def nominal(cls) -> "DeviceRates":
-        # NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, HBM3 at
-        # 3.35 TB/s
-        return cls(flops_per_s=989e12, hbm_bytes_per_s=3.35e12)
+    def nominal(cls, dtype=torch.float32) -> "DeviceRates":
+        """The card's peak for products in ``dtype``, HBM3's rate.
+
+        NVIDIA H100 SXM5 data sheet: 67 TFLOP/s f32 (CUDA cores; the
+        port runs its f32 products with TF32 off), 989 TFLOP/s dense
+        bf16/f16 (tensor cores), HBM3 at 3.35 TB/s.  The port's trainer
+        runs its products in f32, so that is the default; a bf16 model
+        (the dry-run's full configs) passes its dtype (a torch dtype or
+        its numpy name).
+        """
+        half = str(dtype).removeprefix("torch.") in ("bfloat16", "float16")
+        return cls(flops_per_s=989e12 if half else 67e12,
+                   hbm_bytes_per_s=3.35e12)
 
 
 def _sync() -> None:

@@ -4,9 +4,10 @@
 One candidate plan's predicted step time combines three structural
 sources, with no hand-written byte formulas:
 
-  * the COMPUTE half: a cost analysis's flops / bytes of the step (the
-    reference lowers its step for it; the port's counterpart comes with
-    the dry-run) divided by device rates -- None contributes zero;
+  * the COMPUTE half: a cost analysis's flops / bytes of the step
+    (``launch.hlo_cost``, the port's cost pass over the step; the
+    reference lowers its step for it) divided by device rates -- None
+    contributes zero;
   * the WIRE half: each comm mode's per-round payload, computed ahead of
     time from the mode's own codec through ``Compressor.payload_like``
     (the codec's encode run on meta tensors, the same encode the live
@@ -179,7 +180,8 @@ def compute_time_s(analysis: Optional[dict],
                    rates: Optional[DeviceRates]) -> float:
     """Compute half from a cost analysis dict (``flops`` / ``bytes`` of
     the step): roofline max of flops-bound and memory-bound time.
-    ``None`` analysis (micro-bench ranking) contributes zero."""
+    ``None`` analysis (micro-bench ranking) contributes zero; ``None``
+    rates are the card's nominal f32 peak (``DeviceRates.nominal``)."""
     if analysis is None:
         return 0.0
     rates = rates or DeviceRates.nominal()

@@ -55,6 +55,16 @@ from repro_torch.data.problems import make_logreg, make_ridge
 from test_torch_convex_round import ReplayNoise, trace_draws
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def prob():
     """test_algorithms.py's fixture: lam = 0.3, noise = 10."""

@@ -30,6 +30,16 @@ from repro_torch.core.compressors import ShapeDtype
 from repro_torch.weights import flatten_tree
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(t):
     t = t.detach()
     if t.dtype == torch.bfloat16:

@@ -28,6 +28,17 @@ from repro_torch.core.compressors import ShapeDtype
 from repro_torch.core.shift_rules import DianaShift, EF21Shift, EFBVShift
 from repro_torch.launch import train as port_train
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 
 

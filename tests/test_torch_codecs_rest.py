@@ -38,6 +38,17 @@ from repro_torch.core import compressors as TC
 from repro_torch.core.compressors import ShapeDtype
 from repro_torch.core.shift_rules import make_shift_rule
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 NEW = ("bernoulli", "natural_dithering", "terngrad", "induced_topk_randk",
        "induced_topk_natural")

@@ -22,6 +22,17 @@ from repro_torch.configs.base import CompressionConfig
 from repro_torch.dist.collectives import dense_mean
 from repro_torch.launch import train as port_train
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _jax_mean = jax.jit(lambda a: jnp.mean(a, axis=0))
 
 

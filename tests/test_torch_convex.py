@@ -39,6 +39,17 @@ from repro_torch.core.simulate import run_dcgd_shift, run_gdci
 from repro_torch.data.problems import make_ridge
 from test_torch_convex_round import ReplayNoise, trace_draws
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 STEPS = 600
 RTOL, RTOL_TOPK, EXACT_WINDOW = 1e-4, 0.1, 100
 #: the rules whose messages or shifts select coordinates by TopK

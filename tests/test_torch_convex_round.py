@@ -36,6 +36,17 @@ from repro_torch.core import compressors as TC
 from repro_torch.core import iterate_comp as TI
 from repro_torch.core import shift_rules as TS
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 W = 10
 SHAPES = {"a": (80,), "b": (7,)}          # two leaves, the reference's order

@@ -30,6 +30,17 @@ from repro_torch.models import model as TM
 from repro_torch.models import rwkv6 as TR
 from repro_torch.weights import decode_state_from_jax, flatten_tree, params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-5
 STEPS = 12
 ARCHS = ["qwen3-0.6b", "rwkv6-3b"]

@@ -48,6 +48,17 @@ from repro_torch.launch.train import build_train_step, init_state
 
 from test_torch_overlap import KeyedReplay, assert_bitwise
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 W = 4
 
 

@@ -41,6 +41,17 @@ from repro_torch.kernels.natural.kernel import shifted_natural_2d
 from repro_torch.kernels.natural.ops import natural_layout, shifted_natural
 from repro_torch.kernels.natural.ref import shifted_natural_ref
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 TINY = F32(2.0 ** -126)
 

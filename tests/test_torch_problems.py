@@ -28,6 +28,17 @@ from repro_torch.core import algorithms as TA
 from repro_torch.core import iterate_comp as TI
 from repro_torch.data import problems as TP
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-6
 
 PROBLEMS = {

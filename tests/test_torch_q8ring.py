@@ -23,6 +23,16 @@ from repro_torch.kernels.q8ring import kernel as TK
 from repro_torch.kernels.q8ring import ops as TO
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(a):
     """f32 array -> its int32 bit patterns (bitwise comparison)."""
     return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)

@@ -21,6 +21,17 @@ from repro.core import compressors as JC
 from repro_torch.comm.wire import GeneratorNoise, LeafNoise, encode_decode_workers
 from repro_torch.core import compressors as TC
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 
 

@@ -37,6 +37,17 @@ from repro_torch.kernels.q8ring import ops as TO
 from repro_torch.kernels.q8ring.ops import FusedQ8
 from repro_torch.launch.mesh import HostMesh
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 LEAVES = {"a": (1000,), "b": (33,), "c": (3, 64, 40)}   # none a multiple of n*128
 #: (n, W, codec): both codecs at n = 2, 4, 5 with W = 2n, and the main

@@ -44,6 +44,17 @@ from repro_torch.kernels.q8ring.ops import FusedQ8
 from repro_torch.launch.mesh import HostMesh
 from repro_torch.launch.train import build_train_step, init_state
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 W, ALPHA = 4, 0.125
 

@@ -44,6 +44,17 @@ from repro_torch.weights import flatten_tree, params_from_jax
 from test_torch_train import (ReplayNoise, _lattice, _np, _port_state,
                               round_uniforms)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = "rwkv6-3b"
 RTOL = 1e-5
 W, LR, ALPHA = 4, 1e-2, 0.125

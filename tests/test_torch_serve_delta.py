@@ -71,6 +71,17 @@ from repro_torch.serving import (
 from repro_torch.serving import delta as TD
 from repro_torch.weights import flatten_tree, params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 tmap = jax.tree_util.tree_map
 
@@ -448,10 +459,10 @@ def test_transport_model_wire_accounting(dense_setup):
 
 def test_broadcast_params_rejects_auto():
     """The serve-side broadcast builds its channel through make_channel:
-    the tuner's ``auto`` fails naming itself (the port has no tuner yet,
-    so it names the ROADMAP item), a typo naming the accepted modes."""
+    the tuner's ``auto`` sentinel fails naming itself (the reference's
+    ValueError: resolve it first), a typo naming the accepted modes."""
     params = {"w": torch.ones(4, 4)}
-    with pytest.raises(NotImplementedError, match="auto"):
+    with pytest.raises(ValueError, match="'auto' is a tuner sentinel"):
         broadcast_params(params, comm_mode="auto")
     with pytest.raises(ValueError, match="sim"):
         broadcast_params(params, comm_mode="definitely-not-a-mode")

@@ -28,6 +28,17 @@ from repro_torch.models import model as TM
 from repro_torch.serving import Engine, Request
 from repro_torch.weights import params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-5
 
 

@@ -35,6 +35,17 @@ from repro_torch.launch import train as port_train
 from repro_torch.launch.mesh import HostMesh, make_host_mesh, n_workers
 from repro_torch.models import model as TM
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCHS = ("qwen3-0.6b", "rwkv6-3b")
 MESHES = {(1, 1): dict(data=1, model=1), (2, 2): dict(data=2, model=2),
           (2, 2, 2): dict(pod=2, data=2, model=2)}

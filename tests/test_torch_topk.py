@@ -30,6 +30,17 @@ from repro_torch.kernels.topk.ops import block_topk, topk_layout
 from repro_torch.kernels.topk.ref import (block_topk_bisect_ref,
                                           block_topk_kth_ref, block_topk_ref)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 
 

@@ -41,6 +41,17 @@ from repro_torch.configs.base import CompressionConfig, TrainConfig
 from repro_torch.launch import train as port_train
 from repro_torch.weights import flatten_tree, state_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 W, STEPS, LR, ALPHA = 4, 3, 1e-2, 0.125
 COMP = dict(enabled=True, compressor="q8_block", shift_rule="diana",
             comm_mode="dense", shift_alpha=ALPHA)

@@ -30,6 +30,7 @@ What can and cannot be bitwise:
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.configs.base import CompressionConfig as JaxComp
@@ -41,6 +42,17 @@ from repro_torch.configs import get_smoke_config as port_smoke
 from repro_torch.configs.base import CompressionConfig, TrainConfig
 from repro_torch.launch import train as port_train
 from test_torch_train import ReplayNoise, _np, _port_state, _tokens
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 W, LR, ALPHA, Q = 4, 1e-2, 0.125, 0.1
 TIGHT = 1e-5       # f32 agreement, relative to a leaf's largest entry

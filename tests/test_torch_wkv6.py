@@ -31,6 +31,17 @@ from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import (CKPT_EVERY, wkv6_bwd_ref,
                                           wkv6_fwd_ref, wkv6_ref)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Smoke-sized work: one intra-op thread, so that test processes
+    running side by side do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [                      # b, t, h, dk, dv (tests/test_kernels.py)
     (2, 64, 2, 64, 64),
     (1, 128, 4, 64, 64),
