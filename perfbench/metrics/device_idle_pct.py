@@ -1,0 +1,9 @@
+"""The share of the profiled stretch's wall time in which no kernel,
+copy or fill ran on the device."""
+
+
+def read(run):
+    s = run.summary
+    if s is None or s.window_s <= 0 or s.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - s.busy_s / s.window_s)
