@@ -49,8 +49,9 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    q8 codec + dense aggregation, 4 workers, batch 8, seq 128, AdamW lr
    3e-4.  Loss finite, ``bits`` equal to the structural count recomputed
    from the leaf shapes, and each kernel's launch count exactly what the
-   leaves, workers and steps give.  Then a per-phase time breakdown of
-   one more step.
+   leaves, workers and steps give.  (The step's phases are timed where
+   they run, by the program's spans under the benchmark's profiler:
+   ``perfbench/spans.py``.)
 6. The ring main path: the same 3 steps in ``q8_ring_fused`` mode on a
    ``HostMesh(data=4)`` -- 4 ring positions on the one card -- with the
    same checks; the ring's launches are counted too (the chunk
@@ -91,8 +92,8 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    configuration), ``ef21`` + ``topk`` (q = 0.1) and ``rand_diana``
    (p = 0.05) + ``randk`` (q = 0.1), whose bits add one dense f32
    message for each refresh drawn (the round's aux draws, counted).
-   Then EF-BV + q8 in ``q8_ring_fused`` mode: 3 steps, no breakdown,
-   the reference of ``efbv_overlap`` below.
+   Then EF-BV + q8 in ``q8_ring_fused`` mode: 3 steps, the reference
+   of ``efbv_overlap`` below.
 9b. The overlap runtime and the fused backward encode at full size over
    the 4-position ring, 3 steps each with the checks of 5 (bits summed
    in the buckets' order, each q8 kernel's launches those of 6) and
@@ -101,9 +102,7 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    bucket per leaf).  After the 3 steps each path's params, shifts and
    master shift equal, by per-leaf SHA-256 digests of host copies,
    those of the ``q8_ring_fused`` path of its rule from the same seed
-   (6, or 9's EF-BV run).  Their breakdowns also time the round whole
-   (the reductions on the side stream) and, for the fused mode, the
-   gradients with the encode inside.
+   (6, or 9's EF-BV run).
 9c. The production layout and the rest of the step's communication,
    each 3 full-size qwen3-0.6b steps with the checks of 5:
    ``q8_ring_fused`` over ``HostMesh(pod=2, data=2, model=2)`` -- each
@@ -129,8 +128,8 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    worker: one group, capacity 48): the checks of 5 at those workers;
    each wire's bits a step (``Transport.per_wire_bits``) equal to the
    count from the shapes (``wire_bits_from_shapes``) and to the sends
-   the steps made (counted); a breakdown step through the wires; one
-   more round held bitwise against its plain round
+   the steps made (counted); one more round held bitwise against its
+   plain round
    (``phase_plain_round``).
 9e. The dense 20-32B configs and the VLM at full width and
    CONFIG_LAYERS layer (``phase_configs``): internlm2-20b, qwen1.5-32b,
@@ -141,7 +140,7 @@ failure -- nothing is caught, and nothing falls back to a plain version:
 9f. The last three families at full width, each with the checks of 9d
    (``MOE_W`` workers over ``HostMesh(data=MOE_W)``, ``q8_ring_fused``,
    DIANA + ``q8_block``, batch 8, seq 128, one more round bitwise its
-   plain round, a breakdown step): deepseek-v2-lite-16b (MLA and MoE, 64
+   plain round): deepseek-v2-lite-16b (MLA and MoE, 64
    experts top-6 plus 2 shared) cut to DEEPSEEK_LAYERS = 2 of its 27
    layers, its leading dense layer and one MoE layer (1,085,287,424
    params in 29 leaves), both wires q8 (512 tokens a worker: one group
@@ -198,12 +197,13 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    through ``export --check``, the grad wire's bits and payload bytes
    the layouts' count, positive encode and decode seconds, ``omega_hat``
    within the q8 certificate, a hide fraction in [0, 1], a positive
-   predicted step time, a step record a step and ``host/step`` the only
-   span; ``calibrate_rates`` no more than 1.05 x the card's f32 and
-   memory peaks, ``calibrate_link``'s fit printed; ``tree_distortion`` of
-   the q8 codec over the 13 W-stacked leaves bitwise equal with the
-   kernels and with their plain versions; a checkpoint of the final state
-   saved and restored onto the card bitwise equal.
+   predicted step time, a step record a step and ``host/step`` around
+   the step's spans; ``calibrate_rates`` no more than 1.05 x the card's
+   f32 and memory peaks, ``calibrate_link``'s fit printed;
+   ``tree_distortion`` of the q8 codec over the 13 W-stacked leaves
+   bitwise equal with the kernels and with their plain versions; a
+   checkpoint of the final state saved and restored onto the card
+   bitwise equal.
 14. The tuner (``phase_tune``): the trainer CLI on full-size qwen3-0.6b
    (DIANA + ``q8_block``, ``--mesh-data 4``, batch 8, seq 128, 2 steps)
    with ``--comm_mode auto``, a fresh ``--tune-cache`` and the full
@@ -1908,7 +1908,7 @@ def mesh_name(mesh_kw):
 
 
 def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
-                    rule="diana", digest=False, breakdown=True,
+                    rule="diana", digest=False,
                     mesh_kw=None, diag=False, plain_round=False, w=W,
                     wires=("none", "none")):
     """3 steps of ``cfg`` in ``comm_mode`` with ``codec`` and ``rule``:
@@ -1920,15 +1920,14 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     counts of those steps; with ``digest``, per-leaf digests of the
     params and shifts after them (else None); with ``keep``, worker 0's
     gradient of a fourth step and its shift before it (the entry-point
-    phase's inputs), else None.  ``breakdown``: time a fourth step phase
-    by phase.  ``diag``: the step's diagnostics on, logged a step.
-    ``plain_round``: one more round run with the kernels and again with
-    their plain versions, bitwise equal (``phase_plain_round``).  ``w``:
-    the workers.  ``wires``: the moe and act wires' codec flags; with
-    either set, every send of the steps is counted, and each wire's
-    bits a step -- the transport's structural count -- must equal the
-    count recomputed from the shapes (``wire_bits_from_shapes``) and
-    the sends the steps made."""
+    phase's inputs), else None.  ``diag``: the step's diagnostics on,
+    logged a step.  ``plain_round``: one more round run with the kernels
+    and again with their plain versions, bitwise equal
+    (``phase_plain_round``).  ``w``: the workers.  ``wires``: the moe
+    and act wires' codec flags; with either set, every send of the steps
+    is counted, and each wire's bits a step -- the transport's
+    structural count -- must equal the count recomputed from the shapes
+    (``wire_bits_from_shapes``) and the sends the steps made."""
     from repro_torch.comm import transport as TR
     from repro_torch.comm.channel import SimChannel
     from repro_torch.comm.channel import FUSED_VJP_MODES, OVERLAP_MODES
@@ -2079,8 +2078,16 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
         log(f"{what}: digests of {len(digests)} leaves (params, h, h_bar) "
             f"in {time.perf_counter() - t0:.1f} s")
     h0 = {k: h[0].clone() for k, h in state.h.items()} if keep else None
-    g0 = (phase_breakdown(cfg, tcfg, state, batches[STEPS], mesh, keep, w)
-          if breakdown else None)
+    g0 = None
+    if keep:    # plain gradients of one more batch: worker 0's
+        from repro_torch.dist.worker_grads import per_worker_grads, split_batch
+        from repro_torch.launch.train import worker_loss
+
+        grads = per_worker_grads(
+            worker_loss(cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)),
+            state.params, split_batch(batches[STEPS], w))[0]
+        g0 = {k: g[0].clone() for k, g in grads.items()}
+        del grads
     if plain_round:   # the round takes the state's only reference
         box, state, metrics = [state], None, None
         phase_plain_round(cfg, tcfg, box, batches[STEPS], mesh, what, w)
@@ -2175,116 +2182,6 @@ def phase_plain_round(cfg, tcfg, box, batch, mesh, what, w=W):
         f"s): g_bar, h, h_bar of {len(outs[0][0])} leaves")
     del outs, grads
     torch.cuda.empty_cache()
-
-
-def phase_breakdown(cfg, tcfg, state, batch, mesh, keep=False, w=W):
-    """Device time of each phase of one more step, run piece by piece:
-    gradients, the round's messages, its aggregation, its apply, AdamW.
-    In the overlap and fused-VJP modes the aggregation is the bucketed
-    channel's, drained, and the round is also timed whole (its messages,
-    the reductions issued bucket by bucket on the side stream, apply),
-    which shows how much of the aggregation the side stream hid.  In the
-    fused-VJP mode the gradients are timed plain and tapped (the encode
-    inside the backward pass), and the messages are the tapped ones.
-    With the moe or act wire set, the gradients run through the wires,
-    as the step's do.  With ``keep``, returns worker 0's gradients of
-    that step."""
-    from repro_torch.comm.channel import FUSED_VJP_MODES
-    from repro_torch.comm.overlap import AsyncChannel
-    from repro_torch.comm.transport import WorkerWireNoise, build_transport
-    from repro_torch.dist.worker_grads import per_worker_grads, split_batch
-    from repro_torch.launch.train import (build_channel, with_fused_draws,
-                                          worker_loss)
-    from repro_torch.optim.optimizers import make_optimizer
-
-    cfg = cfg.with_(attn_q_chunk=tcfg.train_attn_chunk)
-    comp = tcfg.compression
-    q, rule = comp.make()
-    channel = build_channel(comp, cfg, mesh, w)
-    optimizer = make_optimizer(tcfg)
-    fused = comp.comm_mode in FUSED_VJP_MODES
-    transport = build_transport(comp, cfg, channel, w=w)
-    wires = transport if "moe" in transport or "act" in transport else None
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    t, whole = {}, {}
-    wbatch = split_batch(batch, w)
-    if wires is not None:     # the step's moe / act wire sends, as it ran them
-        wbatch["wire_noise"] = [WorkerWireNoise(state.noise, j)
-                                for j in range(w)]
-
-    def grads_of(tapped):
-        if tapped:
-            return per_worker_grads(
-                worker_loss(cfg, rule, q, wires), state.params,
-                with_fused_draws(wbatch, rule, q, state, w))[0]
-        return per_worker_grads(worker_loss(cfg, wires=wires), state.params,
-                                wbatch)[0]
-
-    if fused:
-        # tapped and plain in turns (tapped, plain, plain, tapped): the
-        # difference of their means is the encode moved into the backward
-        runs = {False: [], True: []}
-        for tapped in (True, False, False, True):
-            grads = None
-            grads, secs = timed(lambda: grads_of(tapped))
-            runs[tapped].append(secs)
-        t["grads"] = statistics.mean(runs[False])
-        whole["grads, encode inside"] = statistics.mean(runs[True])
-        m = grads     # the last run's tapped gradients ARE the messages
-    else:
-        grads, t["grads"] = timed(lambda: grads_of(False))
-        (m, _), t["message"] = timed(lambda: rule.message(
-            q, state.noise, grads, state.h))
-    (aux, _), t["aux"] = timed(lambda: rule.aux(state.noise, grads, state.h))
-    if isinstance(channel, AsyncChannel):
-        # this channel's side stream is new, and the caching allocator
-        # keeps a pool per stream: fill it as the step's first round did
-        channel.reduce(state.noise, m)
-    m_bar, t["aggregation"] = timed(lambda: channel.reduce(state.noise, m))
-    (g_bar, _, _), t["apply"] = timed(lambda: rule.apply(
-        grads, m, m_bar, state.h, state.h_bar, aux))
-    if isinstance(channel, AsyncChannel):
-        # the whole round again (h and h_bar move twice: this state is
-        # not stepped further)
-        m_bar = g_bar = None
-        if fused:
-            (g_bar, _, _, _), whole["round"] = timed(
-                lambda: channel.fused_round(rule, q, state.noise, m,
-                                            state.h, state.h_bar))
-        else:
-            m = None
-            (g_bar, _, _, _), whole["round"] = timed(
-                lambda: channel.shift_round(rule, q, state.noise, grads,
-                                            state.h, state.h_bar))
-    g0 = {k: g[0].clone() for k, g in grads.items()} if keep else None
-    grads = m = m_bar = None
-    _, t["adamw"] = timed(lambda: optimizer.update(g_bar, state.opt,
-                                                   state.params))
-    total = sum(t.values())
-    extra = ""
-    if "round" in whole:
-        parts = (t.get("message", 0.0) + t["aggregation"] + t["apply"])
-        extra += (f"; whole round {whole['round']:.4f} against its parts "
-                  f"{parts:.4f} (hidden {parts - whole['round']:.4f}, "
-                  f"{(parts - whole['round']) / t['aggregation']:.1%} of the "
-                  f"aggregation)")
-    if fused:
-        moved = whole["grads, encode inside"] - t["grads"]
-        extra += (f"; grads with the encode inside "
-                  f"{whole['grads, encode inside']:.4f} (message moved into "
-                  f"grads {moved:.4f})")
-    log(f"breakdown {cfg.name} {comp.comm_mode} {comp.compressor} "
-        f"{comp.effective_shift_rule} (s): "
-        + ", ".join(f"{k} {v:.4f} ({v / total:.1%})" for k, v in t.items())
-        + extra)
-    return g0
 
 
 NEW_CODECS = ("bernoulli", "natural_dithering", "terngrad",
@@ -2902,6 +2799,11 @@ def phase_serve(qwen, rwkv):
 
 
 OBS_STEPS = 2               # the trainer CLI's steps in phase_obs
+#: each span of the step and the span it is opened in (None: the step's)
+OBS_SPANS = {"train/grads": None, "grads/forward": "train/grads",
+             "grads/backward": "train/grads", "train/round": None,
+             "round/message": "train/round", "round/aggregate": "train/round",
+             "round/apply": "train/round", "train/apply": None}
 OBS_RATE_SLACK = 1.05       # calibrated rates may exceed the peaks by this
 
 
@@ -2933,7 +2835,9 @@ def phase_obs(cfg):
         ``omega_hat`` within the q8 codec's certificate, a hide fraction
         in [0, 1] and a finite positive predicted step time; one step
         record a step, with positive ``step_s``; the span table holds
-        ``host/step`` OBS_STEPS times and nothing else;
+        ``host/step`` OBS_STEPS times and inside it every span of the
+        step (``OBS_SPANS``, each under its parent, self time within its
+        total), and besides at most ``host/gc``;
     (c) ``calibrate_rates`` reads no more than the card's f32 and memory
         peaks (times OBS_RATE_SLACK; a higher reading would mean the
         clock did not wait for the device), ``calibrate_link`` fitted;
@@ -3078,9 +2982,16 @@ def phase_obs(cfg):
         check([r["step"] for r in steps] == list(range(OBS_STEPS))
               and all(r["data"]["step_s"] > 0 for r in steps),
               f"{what}: step records {steps}")
+        # every span of the step under host/step; a garbage collection
+        # (host/gc) may or may not fall inside the run
         spans = recs[-1]["data"]["spans"]
-        check(list(spans) == ["host/step"]
-              and spans["host/step"]["count"] == OBS_STEPS,
+        check(set(spans) - {"host/gc"} == {"host/step", *OBS_SPANS}
+              and spans["host/step"]["count"] == OBS_STEPS
+              and spans["grads/forward"]["count"] == OBS_STEPS * W
+              and all(0.0 <= sp["self_s"] <= sp["total_s"]
+                      for sp in spans.values())
+              and all(spans[n]["parent"] == (p or "host/step")
+                      for n, p in OBS_SPANS.items()),
               f"{what}: span table {spans}")
         rec_s = [r["data"]["step_s"] for r in steps]
         log(f"{what}: {n} records, export --check OK; grad wire "
@@ -3754,7 +3665,7 @@ def main(argv=None):
              (qwen, "dense", "randk", "rand_diana")]
     # the overlap runtime and the fused backward encode, each held by
     # digest against the q8_ring_fused path of its rule (EF-BV's run only
-    # for that, without a breakdown)
+    # for that)
     efbv_ring = (qwen, "q8_ring_fused", "q8_block", "efbv")
     overlap_paths = [(qwen, "q8_ring_overlap", "q8_block", "diana"),
                      (qwen, "efbv_overlap", "q8_block", "diana"),
@@ -3777,8 +3688,7 @@ def main(argv=None):
             "" if rule == "diana" else f" {rule}")
         by_path[name], digests[name], kept = phase_main_path(
             cfg, mode, codec, keep=codec == "natural", rule=rule,
-            digest=cfg is qwen and ring_mode(mode),
-            breakdown=(cfg, mode, codec, rule) != efbv_ring)
+            digest=cfg is qwen and ring_mode(mode))
         if kept is not None:
             entry_inputs = kept
         del kept
@@ -3803,7 +3713,7 @@ def main(argv=None):
     one_pod = dict(pod=1, data=4, model=1)
     name = "qwen3-0.6b q8_ring_fused q8_block" + mesh_name(one_pod)
     by_path[name], got, _ = phase_main_path(
-        qwen, "q8_ring_fused", mesh_kw=one_pod, digest=True, breakdown=False)
+        qwen, "q8_ring_fused", mesh_kw=one_pod, digest=True)
     want = digests["qwen3-0.6b q8_ring_fused q8_block"]
     off = [k for k in want if got[k] != want[k]]
     check(not off, f"{name}: {len(off)} leaves differ from the data ring's")
@@ -3816,8 +3726,7 @@ def main(argv=None):
     for diag in (True, False):
         name = "qwen3-0.6b randk_shared natural" + (" diag" if diag else "")
         by_path[name], runs[diag], _ = phase_main_path(
-            qwen, "randk_shared", "natural", digest=True, diag=diag,
-            breakdown=diag)
+            qwen, "randk_shared", "natural", digest=True, diag=diag)
         torch.cuda.empty_cache()
     off = [k for k in runs[False] if runs[True][k] != runs[False][k]]
     check(not off, f"randk_shared: the diag run's state differs at {off[:4]}")

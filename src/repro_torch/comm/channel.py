@@ -10,7 +10,9 @@ structural wire bits (DCGD-STAR's and GDCI's messages);
 ``Channel.push_mean`` is an uplink then its aggregation;
 ``Channel.shift_round`` schedules one shift-rule round, and
 ``Channel.fused_round`` its reduce/apply tail for messages the backward
-pass already emitted (``comm.fused_vjp``).
+pass already emitted (``comm.fused_vjp``); the round's parts are spans
+(``round/message``, ``round/aggregate``, ``round/apply``;
+``repro_torch.spans``).
 
 ``SimChannel`` is the parameter server (exact worker mean);
 ``MeshChannel`` is the production aggregation of the stacked-worker
@@ -47,6 +49,7 @@ from repro_torch.dist.collectives import (
     compressed_tree_mean,
     dense_mean,
 )
+from repro_torch.spans import span
 
 Tree = Dict[str, torch.Tensor]
 
@@ -153,10 +156,14 @@ class Channel:
         """One shift-rule round: the rule's whole-tree message, its aux
         draw, ONE aggregation of the message tree, then ``apply``.
         Returns ``(g_bar, h_new, h_bar_new, bits)``."""
-        m, bits = rule.message(q, noise, wgrads, h)
-        aux, extra = rule.aux(noise, wgrads, h)
-        m_bar = self.reduce(noise, m)
-        g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar, aux)
+        with span("round/message"):
+            m, bits = rule.message(q, noise, wgrads, h)
+            aux, extra = rule.aux(noise, wgrads, h)
+        with span("round/aggregate"):
+            m_bar = self.reduce(noise, m)
+        with span("round/apply"):
+            g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar,
+                                              aux)
         return g_bar, h_new, hb_new, bits + extra
 
     def fused_round(self, rule, q, noise, msgs, h, h_bar):
@@ -169,12 +176,16 @@ class Channel:
         from repro_torch.comm.fused_vjp import check_fusible
 
         check_fusible(rule)
-        bits = f32_bits()
-        for leaf in msgs.values():
-            bits = bits + f32_bits(rule.message_bits_aot(q, leaf))
-        aux, extra = rule.aux(noise, msgs, h)
-        m_bar = self.reduce(noise, msgs)
-        g_bar, h_new, hb_new = rule.apply(msgs, msgs, m_bar, h, h_bar, aux)
+        with span("round/message"):
+            bits = f32_bits()
+            for leaf in msgs.values():
+                bits = bits + f32_bits(rule.message_bits_aot(q, leaf))
+            aux, extra = rule.aux(noise, msgs, h)
+        with span("round/aggregate"):
+            m_bar = self.reduce(noise, msgs)
+        with span("round/apply"):
+            g_bar, h_new, hb_new = rule.apply(msgs, msgs, m_bar, h, h_bar,
+                                              aux)
         return g_bar, h_new, hb_new, bits + extra
 
 

@@ -50,6 +50,7 @@ from repro_torch.comm.channel import MeshChannel, Tree
 from repro_torch.comm.wire import LeafNoise, encode_decode_workers
 from repro_torch.core.compressors import f32_bits
 from repro_torch.dist.collectives import WorkerMean
+from repro_torch.spans import span
 
 #: default per-bucket budget in UNCOMPRESSED per-worker message bytes
 #: (inner numel x dtype width): 4 MiB, the reference's
@@ -245,16 +246,22 @@ class AsyncChannel(MeshChannel):
         handles = []
         bits = f32_bits()
         for b in self._plan(wgrads).buckets:
-            for i in b.indices:
-                msgs[i], bl = rule.message_leaf(
-                    q, LeafNoise(noise, i), g[i],
-                    None if h is None else h[keys[i]])
-                bits = bits + f32_bits(bl)
-            handles.append(self._reduce_bucket(noise, keys, msgs, b))
+            with span("round/message"):
+                for i in b.indices:
+                    msgs[i], bl = rule.message_leaf(
+                        q, LeafNoise(noise, i), g[i],
+                        None if h is None else h[keys[i]])
+                    bits = bits + f32_bits(bl)
+            with span("round/aggregate"):
+                handles.append(self._reduce_bucket(noise, keys, msgs, b))
         m = dict(zip(keys, msgs))
-        aux, extra = rule.aux(noise, wgrads, h)
-        m_bar = self._finish(Inflight(keys, tuple(handles)))
-        g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar, aux)
+        with span("round/message"):
+            aux, extra = rule.aux(noise, wgrads, h)
+        with span("round/aggregate"):
+            m_bar = self._finish(Inflight(keys, tuple(handles)))
+        with span("round/apply"):
+            g_bar, h_new, hb_new = rule.apply(wgrads, m, m_bar, h, h_bar,
+                                              aux)
         return g_bar, h_new, hb_new, bits + extra
 
     def fused_round(self, rule, q, noise, msgs, h, h_bar):
@@ -269,12 +276,19 @@ class AsyncChannel(MeshChannel):
         handles = []
         bits = f32_bits()
         for b in self._plan(msgs).buckets:
-            for i in b.indices:
-                bits = bits + f32_bits(rule.message_bits_aot(q, leaves[i]))
-            handles.append(self._reduce_bucket(noise, keys, leaves, b))
-        m_bar = self._finish(Inflight(keys, tuple(handles)))
-        aux, extra = rule.aux(noise, msgs, h)
-        g_bar, h_new, hb_new = rule.apply(msgs, msgs, m_bar, h, h_bar, aux)
+            with span("round/message"):
+                for i in b.indices:
+                    bits = bits + f32_bits(rule.message_bits_aot(q,
+                                                                 leaves[i]))
+            with span("round/aggregate"):
+                handles.append(self._reduce_bucket(noise, keys, leaves, b))
+        with span("round/aggregate"):
+            m_bar = self._finish(Inflight(keys, tuple(handles)))
+        with span("round/message"):
+            aux, extra = rule.aux(noise, msgs, h)
+        with span("round/apply"):
+            g_bar, h_new, hb_new = rule.apply(msgs, msgs, m_bar, h, h_bar,
+                                              aux)
         return g_bar, h_new, hb_new, bits + extra
 
     def push_mean(self, q, noise, wtree: Tree):

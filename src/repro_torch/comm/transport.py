@@ -56,6 +56,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.compressors import ShapeDtype, _tensor_leaves
+from repro_torch.spans import span
 
 #: wire topologies of the reference: ``allreduce`` (the grad wire),
 #: ``all_to_all`` (moe), ``p2p`` (act), ``broadcast`` (model)
@@ -222,14 +223,17 @@ class Wire:
         straight through (the decode counts as the identity).  With a
         shift ``e`` the error-compensated ``target = x + e`` rides the
         wire and its residual ``target - decoded`` (fused the same way)
-        is the next send's shift."""
-        target = x if e is None else x + e.to(x.dtype)
-        with torch.no_grad():
-            xd, td = x.detach(), target.detach()
-            _, diffs = self.channel.all_to_all(
-                self.codec, draw, td, minus=(xd,) if e is None else (xd, td))
-        e_new = None if e is None else diffs[1].neg_()
-        return x + diffs[0], e_new
+        is the next send's shift.  The send is the span
+        ``wire/<name>`` (``repro_torch.spans``)."""
+        with span(f"wire/{self.name}"):
+            target = x if e is None else x + e.to(x.dtype)
+            with torch.no_grad():
+                xd, td = x.detach(), target.detach()
+                _, diffs = self.channel.all_to_all(
+                    self.codec, draw, td,
+                    minus=(xd,) if e is None else (xd, td))
+            e_new = None if e is None else diffs[1].neg_()
+            return x + diffs[0], e_new
 
     # -- the broadcast model wire ----------------------------------------
 

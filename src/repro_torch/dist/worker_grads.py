@@ -4,7 +4,8 @@ Worker i owns rows ``[i*B/W, (i+1)*B/W)`` of the global batch.  The
 reference vmaps the loss gradient over the worker axis; here the
 workers run one forward/backward pass each and write into preallocated
 ``(W, *param.shape)`` gradient buffers, whose mean over axis 0 is the
-full-batch gradient.
+full-batch gradient.  Each worker's forward and backward pass is a span
+(``grads/forward``, ``grads/backward``; ``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import contextlib
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+
+from repro_torch.spans import span
 
 
 def split_batch(batch: Dict[str, torch.Tensor], w: int):
@@ -53,9 +56,11 @@ def per_worker_grads(loss_fn: Callable, params: Dict[str, torch.Tensor],
     with loop:
         for j in range(1 if traced else w):
             with torch.enable_grad():
-                loss, aux = loss_fn(leaves,
-                                    {k: v[j] for k, v in wbatch.items()})
-                grads = torch.autograd.grad(loss, list(leaves.values()))
+                with span("grads/forward"):
+                    loss, aux = loss_fn(leaves,
+                                        {k: v[j] for k, v in wbatch.items()})
+                with span("grads/backward"):
+                    grads = torch.autograd.grad(loss, list(leaves.values()))
             for buf, g in zip(wgrads.values(), grads):
                 buf[j].copy_(g)
             del grads

@@ -30,16 +30,20 @@ State is updated in place (params, moments, shifts); see the modules
 that do it.
 
 The step's phases (``train/grads``, ``train/reduce``, ``train/round``,
-``train/apply``) are profiler annotations (``obs.trace.annotate``): they
-tag the work for a running ``torch.profiler`` and add no clock, no
-synchronisation and no op; with no profiler running ``obs`` is not even
-imported.  ``--metrics_out`` writes the reference's obs records (strict
-JSONL): a ``run`` header (per-wire telemetry with measured codec
-timings and quality, the measured overlap hide fraction, the nominal
+``train/apply``) are spans (``repro_torch.spans.span``, re-exported by
+``obs.trace``), and so are each worker's passes, the round's parts and
+the wires' sends inside them: a profiler range while ``torch.profiler``
+runs, host time into an active ``SpanRecorder``, and with neither no
+clock, no synchronisation and no op; ``obs`` is not imported.
+``--metrics_out`` writes the reference's obs records (strict JSONL): a
+``run`` header (per-wire telemetry with measured codec timings and
+quality, the measured overlap hide fraction, the nominal
 predicted step time), one ``step`` record a step (the step's wall clock
 ends in a device synchronisation), the ``drift_resync`` events and a
 ``summary``; it turns ``diag`` on, and the returned state stays bitwise
-the uninstrumented run's.  ``--trace`` records the ``host/step`` span.
+the uninstrumented run's.  ``--trace`` records the host time of every
+span, ``host/step`` and ``host/gc`` (Python's garbage collections)
+among them, and prints each with its self time beside its total.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
           [--smoke] [--steps N] [--batch B] [--seq S] \
@@ -124,6 +128,7 @@ from repro_torch.dist.worker_grads import per_worker_grads, split_batch
 from repro_torch.launch.mesh import HostMesh, make_host_mesh, n_workers
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import OptState, make_optimizer
+from repro_torch.spans import span
 
 #: CLI comm modes: the channel registry minus the reference-only
 #: parameter server (the CLI adds the tuner's ``auto``)
@@ -249,16 +254,6 @@ def _worker_mean_f32(wtree):
     return dense_mean({k: v.to(torch.float32) for k, v in wtree.items()})
 
 
-def _phase(name: str):
-    """The profiler tag of one step phase (``obs.trace.annotate``); with
-    no profiler running, nothing at all (``obs`` is not imported)."""
-    if not torch.autograd._profiler_enabled():
-        return nullcontext()
-    from repro_torch.obs.trace import annotate
-
-    return annotate(name)
-
-
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                      mesh: Optional[HostMesh] = None, diag: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
@@ -314,17 +309,17 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                                     for j in range(w)]
         if fused:
             wbatch = with_fused_draws(wbatch, rule, q, state, w)
-        with _phase("train/grads"):
+        with span("train/grads"):
             grads, loss, metrics = per_worker_grads(loss_fn, state.params,
                                                     wbatch)
         extra = {}
         if not comp.enabled:
-            with _phase("train/reduce"):
+            with span("train/reduce"):
                 g_bar = grad_wire.reduce_mean(state.noise, grads)
             h, h_bar, bits = state.h, state.h_bar, state.bits
         elif iterate_rule:
             # Algorithm 2: the round mixes the iterate itself (in place)
-            with _phase("train/round"):
+            with span("train/round"):
                 params, h, h_bar, step_bits = grad_wire.iterate_round(
                     state.noise, state.params, grads, state.h, state.h_bar)
             state.noise.next_round()
@@ -337,7 +332,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                 # against the shifts BEFORE the round, which updates them
                 # in place
                 extra.update(residual_sq_diag(grads, state.h))
-            with _phase("train/round"):
+            with span("train/round"):
                 if fused:   # ``grads`` are the decoded messages already
                     g_bar, h, h_bar, step_bits = grad_wire.fused_round(
                         state.noise, grads, state.h, state.h_bar)
@@ -356,7 +351,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, w: int,
                     extra["h_bar_drift"] = _tree_dist(h_bar,
                                                       _worker_mean_f32(h))
         del grads
-        with _phase("train/apply"):
+        with span("train/apply"):
             params, opt = optimizer.update(g_bar, state.opt, state.params)
         state.noise.next_round()
         new_state = TrainState(params, opt, h, h_bar, state.noise,
@@ -602,18 +597,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "dict — the returned train STATE stays "
                          "bit-exact with the uninstrumented run")
     ap.add_argument("--trace", action="store_true",
-                    help="record host wall-clock spans per phase "
-                         "(encode/reduce/apply) and include the span "
-                         "table in the run summary")
+                    help="record the host wall-clock of every span (the "
+                         "step's phases, the workers' passes, the round's "
+                         "parts, the wires' sends, host/step, host/gc) "
+                         "and include the span table, self time beside "
+                         "total, in the run summary")
     return ap
 
 
 def _host_spans_table(spans: dict) -> str:
     from repro_torch import obs
 
-    rows = [(n, sp["count"], f"{sp['mean_s']:.3e}s")
+    rows = [(n, sp["parent"] or "-", sp["count"], f"{sp['total_s']:.3e}s",
+             f"{sp['self_s']:.3e}s", f"{sp['mean_s']:.3e}s")
             for n, sp in sorted(spans.items())]
-    return obs.format_table("host spans", ["span", "count", "mean"], rows)
+    return obs.format_table("host spans", ["span", "in", "count", "total",
+                                           "self", "mean"], rows)
 
 
 def main(argv: Optional[list] = None):
@@ -757,6 +756,7 @@ def main(argv: Optional[list] = None):
     every = comp.drift_resync_every if comp.enabled else 0
     loop_ctx = obs.recording(recorder) if recorder is not None else \
         nullcontext()
+    gc_ctx = obs.trace.gc_spans() if recorder is not None else nullcontext()
     # the host span around a step ends in a device synchronisation (the
     # step's state ready, as the reference's block_until_ready): the
     # span and the step record hold the device's work, not its launches
@@ -764,7 +764,7 @@ def main(argv: Optional[list] = None):
                 else nullcontext)
     timed = sink is not None or recorder is not None
     t0 = time.time()
-    with loop_ctx:
+    with loop_ctx, gc_ctx:
         for i in range(args.steps):
             ts = time.perf_counter()
             with step_ctx():

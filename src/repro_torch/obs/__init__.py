@@ -8,12 +8,12 @@ discipline (``sink``), one export surface (``export``):
   ``metrics``  typed counters/gauges/histograms + the versioned
                strict-JSON record schema and the ``finite_or_none`` /
                ``sanitize_tree`` helpers.
-  ``trace``    ``span(name)``: a profiler annotation plus a host
-               wall-clock span into an active ``SpanRecorder``
-               (``annotate(name)``, the annotation alone, tags device
-               work inside the eager step: no clock, no op);
-               ``StampRecorder`` for the overlap channel's
-               reduce_start/finish call windows.
+  ``trace``    ``span(name)``: a profiler range while the profiler
+               runs, plus a host wall-clock span (count, total, self
+               time, enclosing span) into an active ``SpanRecorder``;
+               free with neither (``repro_torch.spans``, re-exported);
+               ``trace.gc_spans`` for ``host/gc``; ``StampRecorder`` for the
+               overlap channel's reduce_start/finish call windows.
   ``sink``     rotating strict-JSONL, memory, tee, null sinks; every
                record is sanitized + schema-validated before it is
                serialized.

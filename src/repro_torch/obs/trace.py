@@ -1,25 +1,35 @@
-"""Span API: profiler annotations around device work + host wall-clock
-spans -- the port of the reference's ``repro/obs/trace.py``.
+"""Span API: spans at the step's layer boundaries, for the profiler and
+for host wall-clock -- the port of the reference's ``repro/obs/trace.py``.
 
-Two kinds of time live in a train step and they need different tools:
+``span(name)`` is the one primitive (it lives in the leaf module
+``repro_torch.spans``, so the step's call sites use it without
+importing ``obs``; re-exported here).  Two kinds of time live in a
+train step and a span serves both:
 
   * DEVICE time.  The port's step is eager: PyTorch returns from a call
-    once its kernels are queued, so a host clock around a phase inside
-    the step measures the launches, not the work.  ``annotate(name)``
-    therefore only tags the region for a running profiler
-    (``torch.profiler.record_function``): no host clock, no
-    synchronisation and no op, so annotating a phase can never change
-    the math -- the counterpart of the reference's ``jax.named_scope``
-    + ``TraceAnnotation`` inside jit.  The step's phases
-    (``train/grads``, ``train/reduce``, ``train/round``,
-    ``train/apply``) are annotated so.
-  * HOST time around work that ends in a device synchronisation (the
-    trainer's ``host/step``, which waits for the step's state as the
-    reference's waits with ``block_until_ready``) is real wall clock.
-    ``span(name)`` annotates the region too and, when a
-    ``SpanRecorder`` is active, accumulates its ``perf_counter``
-    duration into it; the caller synchronises inside the span.  With no
-    recorder active the host path is a single ``is None`` check.
+    once its kernels are queued.  With ``torch.profiler`` running, a
+    span is a profiler range (``record_function``) on the device
+    trace's clock, and the device activities launched inside it are
+    its device time -- the counterpart of the reference's
+    ``jax.named_scope`` + ``TraceAnnotation`` inside jit.  The step's
+    phases (``train/grads``, ``train/reduce``, ``train/round``,
+    ``train/apply``), each worker's passes (``grads/forward``,
+    ``grads/backward``), the round's parts (``round/message``,
+    ``round/aggregate``, ``round/apply``) and each wire send
+    (``wire/<name>``) are spans.
+  * HOST time.  With a ``SpanRecorder`` active (``recording``), a span
+    adds its ``perf_counter`` duration into it, and the recorder keeps
+    each name's count, total, self time (the total less the spans
+    opened inside it) and enclosing span.  Inside the step that is the
+    host's issue time; around work that ends in a device
+    synchronisation (the trainer's ``host/step``, which waits for the
+    step's state as the reference's waits with ``block_until_ready``)
+    it is the step's wall clock.  ``gc_spans()`` adds ``host/gc``, one
+    span a Python garbage collection.
+
+With neither the profiler nor a recorder, a span is a shared no-op
+context: no clock read, no synchronisation and no op, so a span can
+never change the math.
 
 ``StampRecorder`` is the raw begin/end-timestamp variant the overlap
 channel uses: ``AsyncChannel.reduce_start``/``finish`` stamp their call
@@ -31,81 +41,16 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Tuple
+from typing import List, Tuple
 
-import torch
-
-#: the active host-span recorder (None = host timing off; module-level
-#: because spans are annotated at call sites that never see the trainer's
-#: loop)
-_ACTIVE: Optional["SpanRecorder"] = None
-
-
-class SpanRecorder:
-    """Accumulated ``{name: (count, total_seconds)}`` host spans."""
-
-    def __init__(self):
-        self.spans: Dict[str, List[float]] = {}
-
-    def add(self, name: str, seconds: float) -> None:
-        cur = self.spans.setdefault(name, [0, 0.0])
-        cur[0] += 1
-        cur[1] += seconds
-
-    def snapshot(self) -> dict:
-        """{name: {count, total_s, mean_s}} — drops into a record."""
-        return {
-            name: {
-                "count": int(c),
-                "total_s": float(t),
-                "mean_s": float(t) / c if c else None,
-            }
-            for name, (c, t) in self.spans.items()
-        }
-
-    def clear(self) -> None:
-        self.spans.clear()
-
-
-@contextmanager
-def recording(recorder: SpanRecorder):
-    """Activate ``recorder`` for host spans within the block."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, recorder
-    try:
-        yield recorder
-    finally:
-        _ACTIVE = prev
-
-
-def active_recorder() -> Optional[SpanRecorder]:
-    return _ACTIVE
-
-
-@contextmanager
-def annotate(name: str):
-    """Tag a region of device work for the profiler, and nothing else
-    (module docstring): no clock, no synchronisation, no op; with no
-    profiler running, not even the tag."""
-    if not torch.autograd._profiler_enabled():
-        yield
-        return
-    with torch.profiler.record_function(name):
-        yield
-
-
-@contextmanager
-def span(name: str):
-    """Annotate one host phase (see module docstring) and, with a
-    ``SpanRecorder`` active, wall-clock it into the recorder.  The
-    caller ends the region with a device synchronisation when the span
-    is meant to hold the device's work."""
-    rec = _ACTIVE
-    t0 = time.perf_counter() if rec is not None else 0.0
-    with annotate(name):
-        yield
-    if rec is not None:
-        rec.add(name, time.perf_counter() - t0)
+from repro_torch.spans import (  # noqa: F401  (re-exported)
+    GC_SPAN,
+    SpanRecorder,
+    active_recorder,
+    gc_spans,
+    recording,
+    span,
+)
 
 
 class StampRecorder:

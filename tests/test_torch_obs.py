@@ -32,6 +32,7 @@ in-process, on the same numpy-seeded inputs.
 """
 
 import ast
+import gc
 import inspect
 import json
 import math
@@ -62,7 +63,7 @@ from repro_torch.comm.overlap import AsyncChannel
 from repro_torch.comm.transport import build_transport
 from repro_torch.comm.wire import AddressedNoise, LeafNoise
 from repro_torch.configs import get_smoke_config
-from repro_torch.configs.base import CompressionConfig
+from repro_torch.configs.base import CompressionConfig, TrainConfig
 from repro_torch.core import compressors as TC
 from repro_torch.core.compressors import ShapeDtype
 from repro_torch.core.shift_rules import make_shift_rule
@@ -73,7 +74,7 @@ from repro_torch.obs import export as P_export
 from repro_torch.obs import history as P_history
 from repro_torch.obs import quality as P_quality
 from repro_torch.obs import regress as P_regress
-from repro_torch.obs.trace import StampRecorder
+from repro_torch.obs.trace import GC_SPAN, StampRecorder, gc_spans
 
 RTOL = 1e-6        # f32 sums of squares in another order
 W = 2
@@ -684,4 +685,84 @@ def test_trainer_metrics_out_and_trace(tmp_path, capsys):
     events = [r["step"] for r in recs if r["kind"] == "event"]
     assert events == resyncs == [1]
     spans = recs[-1]["data"]["spans"]
-    assert sorted(spans) == ["host/step"] and spans["host/step"]["count"] == 3
+    # every span of the step, host/step around them; a garbage collection
+    # may or may not fall inside the run
+    assert set(spans) - {"host/gc"} == {"host/step", *SPAN_PARENTS}
+    assert spans["host/step"]["count"] == 3
+    assert spans["grads/forward"]["count"] == 3 * 2        # W = 2
+    for name, sp in spans.items():
+        assert 0.0 <= sp["self_s"] <= sp["total_s"], name
+        if name in SPAN_PARENTS:
+            assert sp["parent"] == (SPAN_PARENTS[name] or "host/step"), name
+
+
+# -- the step's spans -------------------------------------------------------------
+
+#: each span of a wired q8-ring step and the span it is opened in
+SPAN_PARENTS = {"train/grads": None, "grads/forward": "train/grads",
+                "grads/backward": "train/grads", "train/round": None,
+                "round/message": "train/round",
+                "round/aggregate": "train/round",
+                "round/apply": "train/round", "train/apply": None}
+WIRED_PARENTS = {**SPAN_PARENTS, "wire/moe": "grads/forward",
+                 "wire/act": "grads/forward"}
+
+
+def _wired_step():
+    cfg = get_smoke_config("qwen2-moe-a2.7b").with_(dtype="float32")
+    tcfg = TrainConfig(
+        learning_rate=1e-3, total_steps=10, warmup_steps=1,
+        compression=CompressionConfig(comm_mode="q8_ring_fused",
+                                      compressor="q8_block", moe_wire="q8",
+                                      act_wire="q8"))
+    step = T.build_train_step(cfg, tcfg, W, HostMesh(data=W, device="cpu"))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 16))).long()}
+    return (lambda: T.init_state(0, cfg, tcfg, W, "cpu")), step, batch
+
+
+def test_step_spans_nest_under_the_profiler(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    init, step, batch = _wired_step()
+    state = init()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e["name"] != GC_SPAN)
+    assert {n for _, _, n in ranges} == set(WIRED_PARENTS)
+    for a, b, name in ranges:
+        holding = [r for r in ranges if r[0] <= a and b <= r[1]
+                   and r != (a, b, name)]
+        parent = max(holding)[2] if holding else None
+        assert parent == WIRED_PARENTS[name], (name, parent)
+    counts = {n: sum(r[2] == n for r in ranges) for n in WIRED_PARENTS}
+    assert counts["grads/forward"] == counts["grads/backward"] == W
+    assert counts["train/round"] == counts["round/aggregate"] == 1
+
+
+def test_step_bitwise_with_the_recorder_and_gc_spans():
+    import repro_torch.spans as S
+
+    init, step, batch = _wired_step()
+    off, _ = step(init(), batch)
+    rec = P.SpanRecorder()
+    with P.recording(rec), gc_spans():
+        gc.collect()                   # a host/gc span inside the block
+        on, _ = step(init(), batch)
+    assert S.active_recorder() is None and S._on_gc not in gc.callbacks
+    assert _state_bits(on) == _state_bits(off)
+    spans = rec.snapshot()
+    assert set(spans) == set(WIRED_PARENTS) | {GC_SPAN}
+    for name, sp in spans.items():
+        assert 0.0 <= sp["self_s"] <= sp["total_s"], name
+        if name in WIRED_PARENTS:
+            assert sp["parent"] == WIRED_PARENTS[name], name
+    assert spans["grads/forward"]["count"] == W
+    assert spans["wire/moe"]["count"] > 0 and spans["wire/act"]["count"] > 0
+    # with neither the profiler nor a recorder, a span is the shared no-op
+    assert S.span("train/grads") is S.span("round/apply")
