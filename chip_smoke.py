@@ -59,7 +59,10 @@ failure -- nothing is caught, and nothing falls back to a plain version:
    params and shifts after the 3 steps digested leaf by leaf (9b).
 7. The RWKV-6 main path: the same 3 dense steps of rwkv6-3b at full
    width and RWKV_LAYERS of its 32 layers, with the same checks; each
-   layer launches one WKV6 forward and one backward per worker and step.
+   layer launches one WKV6 forward and one backward per worker and step:
+   in step 1 from the host, in steps 2-3 from the graph of a worker's
+   pass (``dist.worker_grads``), counted as the capture's issues times
+   the graph's launches.
 8. The natural and top-k kernels (``shifted_natural_2d``,
    ``block_topk_2d``) bitwise against their plain versions at every
    qwen3-0.6b leaf layout their wrappers give (f32) and on an edge set
@@ -1917,8 +1920,14 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     ``efbv_overlap``, ``q8_ring_fused_vjp``) over a
     ``HostMesh(data=RING)`` on the card, or over ``HostMesh(**mesh_kw)``
     (its pod stage and ``model`` shards).  Returns the kernels' launch
-    counts of those steps; with ``digest``, per-leaf digests of the
-    params and shifts after them (else None); with ``keep``, worker 0's
+    counts of those steps: a kernel inside the workers' passes, of which
+    step 2 records one worker's as a CUDA graph and steps 2-3 replay it
+    once a worker (``dist.worker_grads``; wired and fused-VJP passes stay
+    eager), counts the launches it issued outside the capture plus those
+    it issued in the capture times the graph's launches, ``w`` a
+    ``grads/replay`` span.  With
+    ``digest``, per-leaf digests of the params and shifts after them
+    (else None); with ``keep``, worker 0's
     gradient of a fourth step and its shift before it (the entry-point
     phase's inputs), else None.  ``diag``: the step's diagnostics on,
     logged a step.  ``plain_round``: one more round run with the kernels
@@ -1934,10 +1943,12 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     from repro_torch.comm.overlap import plan_buckets
     from repro_torch.core.compressors import ShapeDtype
     from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist import worker_grads as WG
     from repro_torch.kernels.q8ring import kernel as K
     from repro_torch.launch.mesh import HostMesh
     from repro_torch.launch.train import build_train_step, init_state
     from repro_torch.models.model import param_specs
+    from repro_torch.spans import SpanRecorder, recording
 
     ring = ring_mode(comm_mode)
     async_mode = comm_mode in OVERLAP_MODES + FUSED_VJP_MODES
@@ -1952,7 +1963,9 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     # n positions, n - 1 accumulating dequants at each, and one all-gather
     # decode per owner, in any bucket plan; the pod stage one q8 encode
     # and one decode per pod and shard; an RWKV-6 layer runs one WKV6
-    # forward and one backward per worker and step (no recompute).  The
+    # forward and one backward per worker and step (no recompute), each
+    # launched in step 1 and by the graph of a worker's pass in steps 2-3
+    # (the capture issues a worker's once, each replay launches them).  The
     # natural, dithering and top-k codecs are plain PyTorch, as the
     # reference's are: no kernel.  Counted before the run, from the code's
     # specs and layouts
@@ -1991,20 +2004,42 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
         return send(self, draw, x, e)
 
     wrappers = reset_launches()
+    captured, capture = [], WG._capture
+
+    def counted_capture(run, pool):     # the launches the capture records
+        before = {name: fn.launches for name, fn in wrappers.items()}
+        out = capture(run, pool)
+        captured.append({name: fn.launches - before[name]
+                         for name, fn in wrappers.items()})
+        return out
+
     step_s, losses, diags = [], [], []
-    TR.Wire.send = counted_send
+    rec = SpanRecorder()
+    TR.Wire.send, WG._capture = counted_send, counted_capture
     try:
-        for i in range(STEPS):
-            t0 = time.perf_counter()
-            state, metrics = step(state, batches[i])
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(metrics["loss"].item())
-            if diag:
-                diags.append({k: metrics[k].item() for k in DIAG})
+        with recording(rec):
+            for i in range(STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batches[i])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(metrics["loss"].item())
+                if diag:
+                    diags.append({k: metrics[k].item() for k in DIAG})
     finally:
-        TR.Wire.send = send
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+        TR.Wire.send, WG._capture = send, capture
+    replays = rec.snapshot().get("grads/replay", {}).get("count", 0)
+    eager = wired or comm_mode in FUSED_VJP_MODES
+    check((len(captured), replays) == ((0, 0) if eager else (1, STEPS - 1)),
+          f"{what}: the workers' passes recorded {len(captured)} times and "
+          f"replayed {replays} times in {STEPS} steps"
+          + (" (wired or fused-VJP: eager)" if eager else ""))
+    recorded = captured[0] if captured else {}
+    # a recorded launch is issued once, in the capture, and launched by
+    # each of the graph's launches, one a worker in a replay
+    launches = {name: fn.launches
+                + recorded.get(name, 0) * (replays * w - 1)
+                for name, fn in wrappers.items()}
     acc_launches = K.q8_dequant_add_2d.acc_launches
     peak = torch.cuda.max_memory_allocated()
 
@@ -2088,8 +2123,11 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
             state.params, split_batch(batches[STEPS], w))[0]
         g0 = {k: g[0].clone() for k, g in grads.items()}
         del grads
-    if plain_round:   # the round takes the state's only reference
-        box, state, metrics = [state], None, None
+    if plain_round:
+        # the round takes the state's only reference; the step goes too:
+        # its graph of the workers' passes holds their gradient buffers
+        # and memory pool while it lives (``dist.worker_grads``)
+        box, state, metrics, step = [state], None, None, None
         phase_plain_round(cfg, tcfg, box, batches[STEPS], mesh, what, w)
     return launches, digests, (g0, h0) if keep else None
 
@@ -2799,11 +2837,18 @@ def phase_serve(qwen, rwkv):
 
 
 OBS_STEPS = 2               # the trainer CLI's steps in phase_obs
-#: each span of the step and the span it is opened in (None: the step's)
-OBS_SPANS = {"train/grads": None, "grads/forward": "train/grads",
-             "grads/backward": "train/grads", "train/round": None,
-             "round/message": "train/round", "round/aggregate": "train/round",
-             "round/apply": "train/round", "train/apply": None}
+#: each span of the trainer's steps on the card and the span it is opened
+#: in (None: the step's): the first step's passes run eagerly, the
+#: second records one worker's pass as a CUDA graph and replays it once a
+#: worker (``dist.worker_grads``), so the passes' spans open in the first
+#: step's ``train/grads`` and in the capture
+OBS_SPANS = {"train/grads": None, "grads/capture": "train/grads",
+             "grads/replay": "train/grads",
+             "grads/forward": "grads/capture|train/grads",
+             "grads/backward": "grads/capture|train/grads",
+             "train/round": None, "round/message": "train/round",
+             "round/aggregate": "train/round", "round/apply": "train/round",
+             "train/apply": None}
 OBS_RATE_SLACK = 1.05       # calibrated rates may exceed the peaks by this
 
 
@@ -2837,7 +2882,8 @@ def phase_obs(cfg):
         record a step, with positive ``step_s``; the span table holds
         ``host/step`` OBS_STEPS times and inside it every span of the
         step (``OBS_SPANS``, each under its parent, self time within its
-        total), and besides at most ``host/gc``;
+        total; the passes eager in the first step, recorded in the second
+        and replayed from then on), and besides at most ``host/gc``;
     (c) ``calibrate_rates`` reads no more than the card's f32 and memory
         peaks (times OBS_RATE_SLACK; a higher reading would mean the
         clock did not wait for the device), ``calibrate_link`` fitted;
@@ -2987,7 +3033,9 @@ def phase_obs(cfg):
         spans = recs[-1]["data"]["spans"]
         check(set(spans) - {"host/gc"} == {"host/step", *OBS_SPANS}
               and spans["host/step"]["count"] == OBS_STEPS
-              and spans["grads/forward"]["count"] == OBS_STEPS * W
+              and spans["grads/forward"]["count"] == W + 1
+              and spans["grads/capture"]["count"] == 1
+              and spans["grads/replay"]["count"] == OBS_STEPS - 1
               and all(0.0 <= sp["self_s"] <= sp["total_s"]
                       for sp in spans.values())
               and all(spans[n]["parent"] == (p or "host/step")

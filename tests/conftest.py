@@ -16,6 +16,11 @@ import sys
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skipped where there is none")
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _bounded_jit_cache():
     yield
