@@ -22,9 +22,9 @@ def control_numbers(cell, seed: int, device) -> dict:
     from perfbench import harness
     from perfbench.reference.train import readings
 
-    ref = readings(cell.config, cell.traffic, seed, device,
+    ref = readings(cell.family, cell.config, cell.traffic, seed, device,
                    harness.CHECKED_STEPS)
-    low = readings(cell.config, cell.traffic, seed, device,
+    low = readings(cell.family, cell.config, cell.traffic, seed, device,
                    harness.CHECKED_STEPS, tf32=True)
     return harness.compare(low, ref)
 

@@ -4,49 +4,46 @@ forward product 2, its backward 4), plus causal attention's two
 products (scores and values) over the S (S + 1) / 2 pairs of each
 sequence, three times (forward, and the backward's two).
 
-On a token's path: every weight matrix of every layer, the routed
-experts counted at top-k of n (a token runs through k of them), the
-router; the head (the tied embedding where it is tied; an embedding
-lookup is no product).  Not counted: norms, rotary positions, softmax,
-the loss, recomputation, capacity padding and the one-hot dispatch and
-combine products of the MoE layers.
+On a token's path: every weight matrix of every layer, the head (the
+tied embedding where it is tied; an embedding lookup is no product).
+A family's ``step_flops`` (``reference/<model_type>.py``) says what else
+a token runs through, such as k of n routed experts.  Not counted:
+norms, rotary positions, softmax, the loss, recomputation, capacity
+padding and the one-hot dispatch and combine products of routed layers.
 """
 
 from __future__ import annotations
 
 import math
 
-from perfbench.reference import model as RM
 
-
-def matrix_params(m: RM.Model) -> float:
-    """Matrix parameters a token runs through."""
+def matrix_params(specs, tied: bool, on_path=lambda path, n: n) -> float:
+    """Matrix parameters a token runs through, of ``(path, shape, init)``
+    leaves (a leaf under ``*blocks/`` stacked over its layers);
+    ``on_path(path, n)`` gives how many of a leaf's ``n`` it runs
+    through."""
     total = 0.0
-    for path, shape, _ in RM.param_specs(m):
+    for path, shape, _ in specs:
         if path == "embed/table":
-            total += math.prod(shape) if m.tied else 0
+            total += math.prod(shape) if tied else 0
             continue
         stacked = path.split("/")[0].endswith("blocks")
         per = shape[1:] if stacked else shape
         if len(per) < 2:
             continue                     # norm scales
-        n = math.prod(shape)
-        name = path.split("/")
-        if "moe" in name and "shared" not in name and "router" not in name:
-            n = n * m.top_k / m.experts  # routed experts: k of n
-        total += n
+        total += on_path(path, math.prod(shape))
     return total
 
 
-def attention_flops(m: RM.Model, batch: int, seq: int) -> float:
-    if m.family == "moe":
-        qk, v = m.nope + m.rope, m.v_dim
-    else:
-        qk = v = m.head_dim
+def attention_flops(batch: int, seq: int, heads: int, qk: int, v: int,
+                    layers: int) -> float:
+    """Causal attention's scores and values, forward and backward, over
+    ``layers`` layers of ``heads`` heads of query/key width ``qk`` and
+    value width ``v``."""
     pairs = seq * (seq + 1) / 2
-    return 3 * 2 * batch * m.heads * pairs * (qk + v) * m.n_layers
+    return 3 * 2 * batch * heads * pairs * (qk + v) * layers
 
 
-def step_flops(m: RM.Model, batch: int, seq: int) -> float:
+def step_flops(matrix: float, attention: float, batch: int, seq: int) -> float:
     """Model FLOPs of one step over ``batch`` sequences of ``seq``."""
-    return 6 * matrix_params(m) * batch * seq + attention_flops(m, batch, seq)
+    return 6 * matrix * batch * seq + attention

@@ -7,8 +7,10 @@ A cell (``BENCHMARK.json``'s ``workloads`` entry) names a configuration
 the benchmark assumes) and a traffic mix (``traffic/<name>.json``: the
 workers, the codec and the aggregation, the batch and sequence, the
 optimizer).  Its limits are ``limits/<cell>.json``; its per-layer
-metrics are ``metrics/<name>.py``, each a ``read(run)``.  All are found
-by name: a new cell, configuration, mix or metric is a new file.
+metrics are ``metrics/<name>.py``, each a ``read(run)``; the plain
+reference of its model family is ``reference/<model_type>.py``, by the
+configuration's published ``model_type``.  All are found by name: a new
+cell, configuration, mix, metric or family is a new file.
 
 A run, in order:
 
@@ -34,17 +36,18 @@ import json
 import math
 import os
 import statistics
+import sys
 import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import torch
 
 from perfbench import inputs, trace
-from perfbench.counts import flops, q8
-from perfbench.reference import model as RM
+from perfbench.counts import q8
 
 ROOT = Path(__file__).resolve().parent
 CHECKED_STEPS = 3
@@ -70,6 +73,7 @@ class Cell:
     limits: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    family: ModuleType
 
 
 def load_cell(name: str, bench: Optional[dict] = None,
@@ -82,6 +86,13 @@ def load_cell(name: str, bench: Optional[dict] = None,
     cfg = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = load_json(root.parent / cfg["file"])
     traffic = load_json(root / "traffic" / f"{w['traffic']}.json")
+    fam = family(config, root)
+    wires = [k for k in ("moe_wire", "act_wire")
+             if traffic.get(k, "none") != "none"]
+    if wires and not fam.WIRES:
+        raise SystemExit(f"traffic {w['traffic']!r} sets {wires}, which the "
+                         f"{config['model_type']!r} family ({fam.__file__}) "
+                         f"does not take")
 
     def mine(metric):
         return name in metric.get("workloads", [name])
@@ -89,50 +100,48 @@ def load_cell(name: str, bench: Optional[dict] = None,
     return Cell(name, config, traffic,
                 load_json(root / "limits" / f"{name}.json"),
                 [m for m in bench["end_to_end"] if mine(m)],
-                [m for m in bench["per_layer"] if mine(m)])
+                [m for m in bench["per_layer"] if mine(m)], fam)
+
+
+def _load(name: str, path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    # a dataclass looks its module up in sys.modules
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, root: Path = ROOT):
     """The ``read(run)`` of ``metrics/<metric>.py``."""
-    path = root / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(f"perfbench_metric_{metric}",
+                 root / "metrics" / f"{metric}.py").read
+
+
+def family(config: dict, root: Path = ROOT) -> ModuleType:
+    """The plain reference's model family of a configuration file,
+    ``reference/<model_type>.py`` by its published ``model_type``
+    (what a family gives: ``reference/common.py``)."""
+    kind = config.get("model_type")
+    path = root / "reference" / f"{kind}.py"
+    if not isinstance(kind, str) or not path.is_file():
+        raise SystemExit(f"no reference family for model_type {kind!r}: "
+                         f"{path} is not there")
+    return _load(f"perfbench_family_{kind}", path)
 
 
 # --------------------------------------------------------------------------
 # The program's objects for a cell
 # --------------------------------------------------------------------------
 
-#: published key -> the program's config field
-_KEYS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
-         "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-         "intermediate_size": "d_ff", "vocab_size": "vocab_size",
-         "rms_norm_eps": "norm_eps", "rope_theta": "rope_theta",
-         "tie_word_embeddings": "tie_embeddings", "head_dim": "head_dim",
-         "kv_lora_rank": "kv_lora_rank", "qk_rope_head_dim": "qk_rope_dim",
-         "qk_nope_head_dim": "qk_nope_dim", "v_head_dim": "v_head_dim",
-         "n_routed_experts": "n_experts", "n_shared_experts": "n_shared_experts",
-         "num_experts_per_tok": "experts_per_token",
-         "moe_intermediate_size": "moe_d_ff",
-         "first_k_dense_replace": "first_dense_layers"}
-_ASSUMED = ("capacity_factor", "router_aux_coef", "moe_group_size")
-
-
-def program_config(config: dict):
-    """The program's ``ModelConfig`` of a configuration file: its registered
-    architecture with every published size of the file, the assumed ones,
-    and f32."""
+def program_config(cell: Cell):
+    """The program's ``ModelConfig`` of a cell's configuration file: its
+    registered architecture with the fields its family reads from the
+    file (every published size, the assumed ones), and f32."""
     from repro_torch.configs import get_config
 
-    kw = {field_: config[key] for key, field_ in _KEYS.items() if key in config}
-    if "qk_nope_head_dim" in config:
-        kw["head_dim"] = config["qk_nope_head_dim"] + config["qk_rope_head_dim"]
-    kw.update({k: config["assumed"][k] for k in _ASSUMED
-               if k in config.get("assumed", {})})
-    return get_config(config["program_arch"]).with_(dtype="float32", **kw)
+    return get_config(cell.config["program_arch"]).with_(
+        dtype="float32", **cell.family.program_fields(cell.config))
 
 
 def train_config(traffic: dict):
@@ -151,12 +160,13 @@ def train_config(traffic: dict):
                        total_steps=opt["total_steps"], compression=comp)
 
 
-def check_layout(cfg, m: RM.Model) -> None:
-    """The program's parameter layout is the reference's, leaf for leaf."""
+def check_layout(cfg, specs) -> None:
+    """The program's parameter layout is the reference's ``specs``, leaf
+    for leaf."""
     from repro_torch.models.model import param_specs
 
     got = [(p, tuple(s)) for p, s, _ in param_specs(cfg)]
-    want = [(p, tuple(s)) for p, s, _ in RM.param_specs(m)]
+    want = [(p, tuple(s)) for p, s, _ in specs]
     if got != want:
         raise SystemExit(f"the program's parameter layout is not the "
                          f"reference's: {got} against {want}")
@@ -233,10 +243,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise SystemExit("TF32 products are on; the cells state f32")
-    tr = cell.traffic
-    m = RM.model_of(cell.config)
-    cfg, tcfg = program_config(cell.config), train_config(tr)
-    check_layout(cfg, m)
+    tr, fam = cell.traffic, cell.family
+    m = fam.model_of(cell.config)
+    specs = fam.param_specs(m)
+    cfg, tcfg = program_config(cell), train_config(tr)
+    check_layout(cfg, specs)
     w, b, s = tr["workers"], tr["batch"], tr["seq"]
     mesh = HostMesh(data=w, device=dev)
 
@@ -245,7 +256,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
 
     # set-up: the state with the benchmark's params and draws
     state = init_state(0, cfg, tcfg, w, dev)
-    start = inputs.make_params(RM.param_specs(m), seed, dev)
+    start = inputs.make_params(specs, seed, dev)
     for k, p in state.params.items():
         p.copy_(start[k])
     del start
@@ -258,7 +269,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
         prog["loss"].append(float(metrics["loss"]))
         if i == 0:
             prog["grad1"] = _norms(state.opt.m, 1.0 / (1.0 - tcfg.beta1))
-    start = inputs.make_params(RM.param_specs(m), seed, dev)
+    start = inputs.make_params(specs, seed, dev)
     prog["change"] = {k: float(torch.linalg.vector_norm(
         (state.params[k] - start[k]).to(torch.float64))) for k in start}
     prog["bits"] = float(state.bits)
@@ -295,7 +306,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
         torch.cuda.empty_cache()
 
     from perfbench.reference.train import readings
-    ref = readings(cell.config, cell.traffic, seed, dev, CHECKED_STEPS)
+    ref = readings(fam, cell.config, cell.traffic, seed, dev, CHECKED_STEPS)
     log("loss by step: program " + " ".join(map(repr, prog["loss"]))
         + "; reference " + " ".join(map(repr, ref["loss"])))
     left_out = sorted(set(ref["grad1"]) - set(kept_leaves(ref)))
@@ -323,9 +334,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
                                       "unit": e["unit"]}
                           for e in cell.end_to_end}
     else:
-        run = Run(summary, flops.step_flops(m, b, s), steps, window_s,
-                  q8.step_launches([math.prod(sh) for _, sh, _ in
-                                    RM.param_specs(m)], w,
+        run = Run(summary, fam.step_flops(m, b, s), steps, window_s,
+                  q8.step_launches([math.prod(sh) for _, sh, _ in specs], w,
                                    w if tr["comm_mode"] != "dense" else 0,
                                    tr["compressor"] == "q8_block"))
         got = {}

@@ -56,9 +56,11 @@ def generator(device, *fields) -> torch.Generator:
 def make_params(specs: Sequence[Tuple[str, Tuple[int, ...], object]], seed: int,
                 device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """The initial parameters of ``specs`` (``(path, shape, init)``, init
-    a normal std or ``("full", value)``): the normal leaves cut from ONE
-    draw of standard normals on ``device`` and scaled by their std, each
-    leaf a tensor of its own."""
+    a normal std, ``("full", value)`` or ``("log_linspace", lo, hi)``,
+    ``log(linspace(lo, hi, n))`` over the leaf's last axis of n, the
+    same in every row): the normal leaves cut from ONE draw of standard
+    normals on ``device`` and scaled by their std, each leaf a tensor of
+    its own."""
     normal = [(p, s, float(i)) for p, s, i in specs if not isinstance(i, tuple)]
     total = sum(_numel(s) for _, s, _ in normal)
     flat = torch.randn(total, generator=generator(device, seed, "params"),
@@ -66,14 +68,24 @@ def make_params(specs: Sequence[Tuple[str, Tuple[int, ...], object]], seed: int,
     out, off = {}, 0
     for path, shape, init in specs:
         if isinstance(init, tuple):
-            out[path] = torch.full(shape, float(init[1]), dtype=dtype,
-                                   device=device)
+            out[path] = _fixed(path, shape, init, dtype, device)
             continue
         n = _numel(shape)
         out[path] = (flat[off:off + n].view(shape) * float(init)).to(dtype)
         off += n
     del flat
     return out
+
+
+def _fixed(path: str, shape, init: tuple, dtype, device) -> torch.Tensor:
+    if init[0] == "full" and len(init) == 2:
+        return torch.full(shape, float(init[1]), dtype=dtype, device=device)
+    if init[0] == "log_linspace" and len(init) == 3:
+        row = torch.log(torch.linspace(float(init[1]), float(init[2]),
+                                       shape[-1], dtype=torch.float32,
+                                       device=device))
+        return row.to(dtype).expand(shape).contiguous()
+    raise ValueError(f"{path}: unknown init {init!r}")
 
 
 def _numel(shape: Iterable[int]) -> int:

@@ -2,8 +2,9 @@
 the benchmark makes (``perfbench.inputs``): the same initial parameters,
 token batches and draws as the measured run.
 
-``readings`` runs ``steps`` steps (W workers' forward and backward
-passes, one DIANA round, AdamW) and returns what the comparison reads:
+``readings`` runs ``steps`` steps of a model family
+(``reference/<model_type>.py``: W workers' forward and backward passes,
+one DIANA round, AdamW) and returns what the comparison reads:
 each step's loss (the workers' mean), each leaf's norm of the first
 step's ``g_bar`` (what AdamW received), each leaf's norm of the change
 of the parameters over the steps, and the wire bits counted.  It
@@ -19,8 +20,8 @@ import numpy as np
 import torch
 
 from perfbench import inputs
-from perfbench.reference import model as RM
 from perfbench.reference import round as RR
+from perfbench.reference.common import Wires
 
 
 @contextmanager
@@ -42,10 +43,10 @@ def leaf_norms(tree: Dict[str, torch.Tensor]) -> Dict[str, float]:
             for k, v in tree.items()}
 
 
-def readings(config: dict, traffic: dict, seed: int, device, steps: int = 3,
-             tf32: bool = False) -> dict:
-    m = RM.model_of(config)
-    specs = RM.param_specs(m)
+def readings(family, config: dict, traffic: dict, seed: int, device,
+             steps: int = 3, tf32: bool = False) -> dict:
+    m = family.model_of(config)
+    specs = family.param_specs(m)
     w, b, s = traffic["workers"], traffic["batch"], traffic["seq"]
     opt = traffic["optimizer"]
     draws = inputs.SeedDraws(inputs.draws_seed(seed), device)
@@ -68,11 +69,11 @@ def readings(config: dict, traffic: dict, seed: int, device, steps: int = 3,
             for j in range(w):
                 leaves = {k: p.detach().requires_grad_(True)
                           for k, p in params.items()}
-                wires = (RM.Wires(draws, j, traffic["moe_wire"] != "none",
-                                  traffic["act_wire"] != "none")
+                wires = (Wires(draws, j, traffic["moe_wire"] != "none",
+                               traffic["act_wire"] != "none")
                          if wired else None)
-                loss, _ = RM.loss(leaves, m, tokens[j * b // w:(j + 1) * b // w],
-                                  wires)
+                loss, _ = family.loss(leaves, m,
+                                      tokens[j * b // w:(j + 1) * b // w], wires)
                 gs = torch.autograd.grad(loss, list(leaves.values()))
                 for k, g in zip(leaves, gs):
                     grads[k][j] = g

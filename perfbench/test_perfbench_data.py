@@ -1,8 +1,8 @@
 """The benchmark is driven by data: BENCHMARK.json's cells resolve to
 files found by name, its names and units fit the contract's characters,
 every metric's ``moves`` is reported by each of its cells, and a
-configuration, traffic mix and metric dropped in as new files are found
-with no code edited."""
+configuration, traffic mix, metric and model family dropped in as new
+files are found with no code edited."""
 
 import json
 import re
@@ -11,7 +11,7 @@ from pathlib import Path
 
 import pytest
 
-from perfbench import harness
+from perfbench import harness, smoke
 
 ROOT = Path(__file__).resolve().parent
 BENCH = json.loads((ROOT.parent / "BENCHMARK.json").read_text())
@@ -109,3 +109,55 @@ def test_new_files_are_found_without_code(tmp_path):
     assert "steps_seen" in [m["name"] for m in cell.per_layer]
     run = harness.Run(None, 1.0, 7, 1.0, [])
     assert harness.reader("steps_seen", root)(run) == 7.0
+
+
+#: a family of a new ``model_type``, as a later configuration brings one
+DROPIN = """from perfbench.reference.qwen3 import (SMOKE, WIRES, Model, loss,
+    model_of, param_specs, program_fields, step_flops)
+"""
+
+
+def _family_cell(tmp_path, model_type, traffic="natural-w4-b8-s128"):
+    """A copy of ``perfbench/`` with a configuration of ``model_type``
+    (qwen3-0.6b's keys) and a cell ``family-cell`` of it under
+    ``traffic``, as new files; returns the copy and its benchmark."""
+    root = tmp_path / "perfbench"
+    shutil.copytree(ROOT, root, ignore=shutil.ignore_patterns("__pycache__"))
+    cfg = json.loads((ROOT / "configs" / "qwen3-0.6b.json").read_text())
+    cfg["model_type"] = model_type
+    (root / "configs" / "qwen3-family.json").write_text(json.dumps(cfg))
+    mix = json.loads((ROOT / "traffic" / f"{traffic}.json").read_text())
+    (root / "traffic" / "family-mix.json").write_text(json.dumps(mix))
+    (root / "limits" / "family-cell.json").write_text(json.dumps(
+        {"loss": 1e-5, "grad1": 1e-3, "change": 1e-3, "bits": 0.0}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append(dict(bench["configs"][0], name="qwen3-family",
+                                 file="perfbench/configs/qwen3-family.json"))
+    bench["workloads"].append({"name": "family-cell", "config": "qwen3-family",
+                               "traffic": "family-mix", "chips": 1,
+                               "why": "a family added as files"})
+    return root, bench
+
+
+def test_a_new_family_drops_in_as_files(tmp_path):
+    root, bench = _family_cell(tmp_path, "qwen3_dropin")
+    (root / "reference" / "qwen3_dropin.py").write_text(DROPIN)
+    cell = smoke.smoke_cell("family-cell", bench=bench, root=root)
+    assert cell.family.__file__ == str(root / "reference" / "qwen3_dropin.py")
+    out = harness.run_cell(cell, 2**31 + 7, 0.05, False, device="cpu")
+    assert out["correct"], out["checks"]
+    assert set(out["checks"]) == set(smoke.LIMITS)
+
+
+@pytest.mark.parametrize("case", ["unknown model_type", "wires untaken"])
+def test_a_family_is_refused_with_its_path(tmp_path, case):
+    if case == "unknown model_type":
+        root, bench = _family_cell(tmp_path, "qwen3_unknown")
+        said = str(root / "reference" / "qwen3_unknown.py")
+    else:
+        root, bench = _family_cell(tmp_path, "qwen3",
+                                   traffic="q8ring-wires-w2-b8-s128")
+        said = str(root / "reference" / "qwen3.py")
+    with pytest.raises(SystemExit) as refused:
+        harness.load_cell("family-cell", bench, root)
+    assert said in str(refused.value)

@@ -26,6 +26,8 @@ import repro_torch.kernels.q8ring.kernel, repro_torch.obs.trace
 import torch.profiler
 for p in sorted((harness.ROOT / "metrics").glob("*.py")):
     harness.reader(p.stem)
+for p in sorted((harness.ROOT / "configs").glob("*.json")):
+    harness.family(harness.load_json(p))
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
 
