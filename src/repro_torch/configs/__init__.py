@@ -4,7 +4,10 @@ internlm2-20b, qwen1.5-32b, qwen2.5-32b), the vision-prefix VLM
 (llava-next-34b), the MoE family (qwen2-moe-a2.7b; deepseek-v2-lite-16b
 with multi-head latent attention), RWKV-6 (rwkv6-3b), the Mamba-2 hybrid
 (zamba2-1.2b) and the audio encoder-decoder (seamless-m4t-large-v2): the
-reference's ten."""
+reference's ten, ``ARCH_IDS``.  Besides them, ``get_config`` resolves
+the port-only architectures, which the reference lacks: zamba2-7b, the
+published Zamba2 block (grouped Mamba-2, shared blocks over the hidden
+state and the embedding, per-use adapters; ``Zamba2Config``)."""
 
 from repro_torch.configs import (
     deepseek_v2_lite_16b,
@@ -16,6 +19,7 @@ from repro_torch.configs import (
     qwen25_32b,
     rwkv6_3b,
     seamless_m4t_large_v2,
+    zamba2_7b,
     zamba2_12b,
 )
 from repro_torch.configs.base import (
@@ -24,6 +28,7 @@ from repro_torch.configs.base import (
     InputShape,
     ModelConfig,
     TrainConfig,
+    Zamba2Config,
 )
 
 _MODULES = {     # the reference's order
@@ -41,17 +46,27 @@ _MODULES = {     # the reference's order
 
 ARCH_IDS = tuple(_MODULES)
 
+#: architectures of the port alone, not in ``ARCH_IDS``
+_PORT_ONLY = {
+    "zamba2-7b": zamba2_7b,
+}
+
 __all__ = ["ARCH_IDS", "CompressionConfig", "INPUT_SHAPES", "InputShape",
-           "ModelConfig", "TrainConfig", "get_config", "get_smoke_config"]
+           "ModelConfig", "TrainConfig", "Zamba2Config", "get_config",
+           "get_smoke_config"]
+
+
+def _module(arch: str):
+    mod = _MODULES.get(arch) or _PORT_ONLY.get(arch)
+    if mod is None:
+        raise ValueError(f"unknown arch {arch!r}; have "
+                         f"{list(_MODULES) + list(_PORT_ONLY)}")
+    return mod
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise ValueError(f"unknown arch {arch!r}; have {list(_MODULES)}")
-    return _MODULES[arch].CONFIG
+    return _module(arch).CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise ValueError(f"unknown arch {arch!r}; have {list(_MODULES)}")
-    return _MODULES[arch].smoke()
+    return _module(arch).smoke()

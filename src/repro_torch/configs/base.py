@@ -18,6 +18,7 @@ from typing import Optional
 class ModelConfig:
     name: str
     arch_type: str                 # dense | moe | ssm | hybrid | vlm | audio
+    #                                (| zamba2: Zamba2Config)
     n_layers: int
     d_model: int
     n_heads: int
@@ -83,6 +84,23 @@ class ModelConfig:
     def param_count(self) -> int:
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
+
+
+@dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """The published Zamba2 block (``arch_type`` "zamba2"; port-only,
+    the reference has no such family): Mamba-2 layers whose B and C come
+    in ``mamba_ngroups`` groups, and at each of ``hybrid_layer_ids`` one
+    of ``num_mem_blocks`` shared attention blocks, used in turn, over the
+    hidden state and the token embedding concatenated, each use with its
+    own rank-``adapter_rank`` adapter on the MLP's gate and up
+    projections and its own ``linear`` (``models/model.py``).  The
+    attention reads ``2 d_model`` through ``n_heads`` heads of
+    ``head_dim``; the MLP is GELU-gated, ``d_ff`` wide."""
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 1
+    mamba_ngroups: int = 1
+    adapter_rank: int = 0
 
 
 @dataclass(frozen=True)

@@ -27,7 +27,9 @@ decoder: the vision prefix is a training-time input), qwen2-moe-a2.7b
 (the ``kv_moe`` caches), deepseek-v2-lite-16b (MLA's latent caches),
 rwkv6-3b, zamba2-1.2b (the Mamba-2 states and the shared block's caches)
 or seamless-m4t-large-v2 (its decoder over ``prompt_len`` zero encoder
-positions, as the reference's CLI).
+positions, as the reference's CLI); or the port-only zamba2-7b (the
+grouped Mamba-2 states, and each hybrid layer's cache of its shared
+block, ``n_heads x head_dim`` = 7168 wide).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Transformer substrate: norms, RoPE, grouped-query attention,
-cross-attention, SwiGLU MLP, embeddings, the tied head, cross-entropy.
+cross-attention, SwiGLU MLP (and Zamba2's GELU-gated one with its
+adapter), embeddings, the tied head, cross-entropy.
 
 The port of the reference's ``repro/models/layers.py`` (but its unused
 ``attention_prefill`` and ``cross_attention_apply``'s ``enc_valid``,
@@ -68,19 +69,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def chunked_attention(q, k, v, *, causal: bool, q_offset: int,
                       k_positions: torch.Tensor, k_valid=None,
-                      window: int = 0, q_chunk: int = 512):
+                      window: int = 0, q_chunk: int = 512, scale=None):
     """Grouped-query attention, softmax in f32.  Up to one key chunk
     (``q_chunk`` keys) it is one masked softmax; longer key sequences run
     the flash-attention recurrence over key chunks with running
     (max, sum, out) accumulators, as the reference does.  ``k_valid``:
     None, or a bool (B, Sk) or (Sk,) mask, False where a key is masked
-    out."""
+    out.  ``scale``: the scores' factor, ``1 / sqrt(Dh)`` where None."""
     b, sq, h, dh = q.shape
     dv = v.shape[-1]
     kv = k.shape[2]
     g = h // kv
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(dh)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
     qg = q.reshape(b, sq, kv, g, dh)
     kpos = k_positions.to(torch.int64)
     qpos = q_offset + torch.arange(sq, device=q.device)
@@ -162,25 +164,27 @@ def _out_proj(out, wo):
     return out.reshape(b, s, h * dh) @ wo
 
 
-def attention_apply(p, x, cfg: ModelConfig):
-    """Full-sequence causal self-attention."""
+def attention_apply(p, x, cfg: ModelConfig, scale=None):
+    """Full-sequence causal self-attention (``scale``: the softmax's, as
+    ``chunked_attention``'s)."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _qkv(p, x, cfg, pos.expand(b, s))
     out = chunked_attention(q, k, v, causal=True, q_offset=0,
                             k_positions=pos, window=cfg.sliding_window,
-                            q_chunk=cfg.attn_q_chunk)
+                            q_chunk=cfg.attn_q_chunk, scale=scale)
     return _out_proj(out, p["wo"])
 
 
-def attention_decode(p, x, cfg: ModelConfig, cache, pos: int):
+def attention_decode(p, x, cfg: ModelConfig, cache, pos: int, scale=None):
     """One-token decode at absolute position ``pos`` (a host int: the
     engine's clock lives on the host, so a tick never waits on the
     device for it).  Writes the token's k/v and position into slot ``pos
     % C`` of ``cache`` in place and attends over the ring: ``kpos`` (B,
     C) marks each row's valid slots, and the causal and window masks
     read the shared clock's positions, ``max_B kpos`` (2**30 where no
-    row holds the slot).  Returns ``y`` (B, 1, D)."""
+    row holds the slot).  ``scale`` as ``attention_apply``'s.  Returns
+    ``y`` (B, 1, D)."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
@@ -193,7 +197,8 @@ def attention_decode(p, x, cfg: ModelConfig, cache, pos: int):
     out = chunked_attention(
         q, cache["k"], cache["v"], causal=True, q_offset=pos,
         k_positions=torch.where(shared_pos >= 0, shared_pos, 2**30),
-        k_valid=kpos >= 0, window=cfg.sliding_window, q_chunk=1)
+        k_valid=kpos >= 0, window=cfg.sliding_window, q_chunk=1,
+        scale=scale)
     return _out_proj(out, p["wo"])
 
 
@@ -262,6 +267,20 @@ def wire_boundary(wire, draw, x, e):
 def mlp_apply(p, x):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def gelu_mlp_apply(p, x, adapter=None):
+    """The GELU-gated MLP, ``(gelu(x w_gate) * (x w_up)) w_down`` (GELU
+    exact, by erf).  ``adapter``: None, or the leaves ``{"a" (D, r),
+    "b_gate", "b_up" (r, F)}`` of a rank-r adapter, whose ``(x a) b_gate``
+    and ``(x a) b_up`` add to the gate and the up projection."""
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    if adapter is not None:
+        low = x @ adapter["a"]
+        gate = gate + low @ adapter["b_gate"]
+        up = up + low @ adapter["b_up"]
+    return (F.gelu(gate) * up) @ p["w_down"]
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor):

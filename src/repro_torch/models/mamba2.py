@@ -10,9 +10,12 @@ Per head with state S in R^{N x P} (N = ssm_state, P = head dim):
     y_t = C_t^T S_t + D * x_t
 
 dt is a softplus of a data-dependent projection plus a bias; B and C
-are shared across heads (one group).  A short causal depthwise conv1d
-over the (x, B, C) streams comes first.  d_inner = 2 d_model, P =
-``rwkv_head_dim``.
+come in G = ``cfg.mamba_ngroups`` groups (1, shared by every head, where
+the config has no such field: the reference's), head h reading group
+``h // (H/G)``, as Zamba2 and transformers do.  A short causal
+depthwise conv1d over the (x, B, C) streams comes first.  d_inner = 2
+d_model, P = ``rwkv_head_dim``.  The gated norm ``rmsnorm(y *
+silu(z))`` is taken over each group's ``d_inner / G`` channels.
 
 The recurrence is plain PyTorch, as the reference's is XLA's (it has no
 Pallas kernel): the exact per-step scan ``_ssd_scan`` (a Python loop
@@ -21,8 +24,8 @@ where the reference runs ``lax.scan``), or for training and prefill
 ``_ssd_chunked``, one chunk after another.  Decode carries ``{"conv"
 (B, K-1, conv_dim) in the model's dtype, "ssm" (B, H, N, P) f32}``.
 
-Leaves (relative to the layer's ``m2``): ``w_in`` (d, 2 d_inner + 2 N +
-H), ``conv_w`` (K, conv_dim), ``conv_b`` (conv_dim,), ``a_log``,
+Leaves (relative to the layer's ``m2``): ``w_in`` (d, 2 d_inner + 2 G N
++ H), ``conv_w`` (K, conv_dim), ``conv_b`` (conv_dim,), ``a_log``,
 ``dt_bias``, ``d_skip`` (H,) -- f32 whatever the model's dtype --,
 ``norm/scale`` (d_inner,), ``w_out`` (d_inner, d).
 """
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rmsnorm
+from repro_torch.spans import count, span
 
 Params = Dict[str, torch.Tensor]
 
@@ -56,11 +60,17 @@ def _dims(cfg: ModelConfig):
     return d_inner, h, p, cfg.ssm_state
 
 
+def _groups(cfg: ModelConfig) -> int:
+    """G, the B/C groups."""
+    return getattr(cfg, "mamba_ngroups", 1)
+
+
 def mamba2_specs(cfg: ModelConfig):
     """(relative path, shape, init) of one Mamba-2 layer, the reference's
-    ``init_mamba2``."""
+    ``init_mamba2``, its B and C G groups wide."""
     d = cfg.d_model
     d_inner, h, _, n = _dims(cfg)
+    n = _groups(cfg) * n             # B's (and C's) width
     conv_dim = d_inner + 2 * n
     return [
         # in_proj -> [z (gate), x, B, C, dt]
@@ -75,19 +85,35 @@ def mamba2_specs(cfg: ModelConfig):
     ]
 
 
+def _by_group(t, g: int):
+    """A head-leading (B, H, ...) tensor as (B, G, H/G, ...)."""
+    return t.unflatten(1, (g, t.shape[1] // g))
+
+
 def _ssd_scan(x, b_t, c_t, dt_t, a_log, d_skip, s0):
     """The exact recurrence, step by step.  x (B,T,H,P); b_t, c_t
-    (B,T,N); dt_t (B,T,H); s0 (B,H,N,P).  Returns (y (B,T,H,P), s)."""
+    (B,T,N) for one group or (B,T,G,N) for G; dt_t (B,T,H); s0
+    (B,H,N,P).  Returns (y (B,T,H,P), s)."""
     a = -torch.exp(a_log)                                 # (H,)
+    g = b_t.shape[2] if b_t.dim() == 4 else 0
     s = s0
     ys = []
     for t in range(x.shape[1]):
         xt, bt, ct, dtt = x[:, t], b_t[:, t], c_t[:, t], dt_t[:, t]
         decay = torch.exp(a[None] * dtt)                  # (B,H)
-        upd = torch.einsum("bn,bhp->bhnp", bt, xt * dtt[..., None])
+        xdt = xt * dtt[..., None]
+        if g:
+            upd = torch.einsum("bgn,bgjp->bgjnp", bt,
+                               _by_group(xdt, g)).flatten(1, 2)
+        else:
+            upd = torch.einsum("bn,bhp->bhnp", bt, xdt)
         s = decay[..., None, None] * s + upd
-        ys.append(torch.einsum("bn,bhnp->bhp", ct, s)
-                  + d_skip[None, :, None] * xt)
+        if g:
+            read = torch.einsum("bgn,bgjnp->bgjp", ct,
+                                _by_group(s, g)).flatten(1, 2)
+        else:
+            read = torch.einsum("bn,bhnp->bhp", ct, s)
+        ys.append(read + d_skip[None, :, None] * xt)
     return torch.stack(ys, 1), s
 
 
@@ -103,17 +129,19 @@ def _ssd_chunked(x, b_t, c_t, dt_t, a_log, d_skip, s0, chunk: int = CHUNK):
     (B, L, L, H) pairwise decay is built inside the chunk loop, never
     for all chunks at once, and the reference's three-operand einsums
     are contracted pairwise, so no (B, L, L, H, P) temporary is made.
-    f32 throughout.  Shapes as ``_ssd_scan``'s; ``t`` a multiple of
-    ``chunk``."""
+    With G groups ``C_t.B_s`` is (B, L, L, G), each group's scores
+    scaling its H/G heads' decays.  f32 throughout.  Shapes as
+    ``_ssd_scan``'s; ``t`` a multiple of ``chunk``."""
     bsz, t, h, pdim = x.shape
-    n = b_t.shape[-1]
+    g = b_t.shape[2] if b_t.dim() == 4 else 0
     assert t % chunk == 0, (t, chunk)
     nc = t // chunk
+    count("model/ssd_chunks", nc)
     a = -torch.exp(a_log)                                  # (H,) negative
 
     xr = (x * dt_t[..., None]).reshape(bsz, nc, chunk, h, pdim)
-    br = b_t.reshape(bsz, nc, chunk, n)
-    cr = c_t.reshape(bsz, nc, chunk, n)
+    br = b_t.reshape(bsz, nc, chunk, *b_t.shape[2:])
+    cr = c_t.reshape(bsz, nc, chunk, *c_t.shape[2:])
     # intra-chunk cumulative log decays (B, nc, L, H), non-positive steps
     cum = torch.cumsum((a[None, None] * dt_t).reshape(bsz, nc, chunk, h),
                        dim=2)
@@ -128,14 +156,26 @@ def _ssd_chunked(x, b_t, c_t, dt_t, a_log, d_skip, s0, chunk: int = CHUNK):
         # the whole matrix and then masks it; masking first gives the
         # same values and keeps exp(+large) out of the backward pass
         dmat = torch.exp(dmat.masked_fill(~tril, -math.inf))
-        g = torch.einsum("btn,bsn->bts", cr_c, br_c)           # (B,L,L)
-        y_intra = torch.einsum("btsh,bshp->bthp", g[..., None] * dmat, xr_c)
-        # contribution of the incoming state
         u = torch.exp(cum_c)                                   # (B,L,H) <= 1
-        y_inter = torch.einsum("btn,bhnp->bthp", cr_c, s) * u[..., None]
-        # S <- exp(c_L) S + sum_s exp(c_L - c_s) B_s xr_s
         fac = torch.exp(cum_c[:, -1:, :] - cum_c)              # (B,L,H) <= 1
-        s_in = torch.einsum("bsn,bshp->bhnp", br_c, fac[..., None] * xr_c)
+        if g:
+            sc = torch.einsum("btgn,bsgn->btsg", cr_c, br_c)   # (B,L,L,G)
+            w = (dmat.unflatten(-1, (g, h // g)) * sc[..., None]).flatten(-2)
+            y_intra = torch.einsum("btsh,bshp->bthp", w, xr_c)
+            y_inter = torch.einsum(
+                "btgn,bgjnp->btgjp", cr_c, _by_group(s, g)).flatten(2, 3)
+            s_in = torch.einsum(
+                "bsgn,bsgjp->bgjnp", br_c,
+                (fac[..., None] * xr_c).unflatten(2, (g, h // g))
+            ).flatten(1, 2)
+        else:
+            sc = torch.einsum("btn,bsn->bts", cr_c, br_c)      # (B,L,L)
+            y_intra = torch.einsum("btsh,bshp->bthp", sc[..., None] * dmat,
+                                   xr_c)
+            y_inter = torch.einsum("btn,bhnp->bthp", cr_c, s)
+            s_in = torch.einsum("bsn,bshp->bhnp", br_c, fac[..., None] * xr_c)
+        # the incoming state's contribution, and S <- exp(c_L) S + s_in
+        y_inter = y_inter * u[..., None]
         s = u[:, -1, :, None, None] * s + s_in
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, 1).reshape(bsz, t, h, pdim)
@@ -161,17 +201,26 @@ def mamba2_apply(p: Params, x, cfg: ModelConfig, state=None):
     "ssm"}``.  Returns ``(out (B,T,D), {"conv": new tail, "ssm": S})``.
     The chunked form runs when ``t`` is a positive multiple of CHUNK and
     no state is given, the exact scan otherwise, as the reference
-    chooses."""
+    chooses.  Span ``model/mamba``, the scan inside it ``model/ssd``;
+    the chunked form counts its chunks (``model/ssd_chunks``)."""
+    with span("model/mamba"):
+        return _mamba2(p, x, cfg, state)
+
+
+def _mamba2(p: Params, x, cfg: ModelConfig, state):
     bsz, t, _ = x.shape
     d_inner, h, pdim, n = _dims(cfg)
+    g = _groups(cfg)
     proj = x @ p["w_in"]
     z, xs, bs, cs, dts = torch.split(
-        proj, [d_inner, d_inner, n, n, h], dim=-1)
+        proj, [d_inner, d_inner, g * n, g * n, h], dim=-1)
     conv_in = torch.cat([xs, bs, cs], dim=-1)
     tail = None if state is None else state["conv"]
     conv_out, new_tail = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
                                       tail)
-    xs, bs, cs = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    xs, bs, cs = torch.split(conv_out, [d_inner, g * n, g * n], dim=-1)
+    if g > 1:
+        bs, cs = bs.unflatten(-1, (g, n)), cs.unflatten(-1, (g, n))
 
     # jax.nn.softplus is logaddexp(x, 0); torch's is log1p(exp(x)) and
     # the identity above threshold=20, where the f32 softplus rounds to x
@@ -182,14 +231,20 @@ def mamba2_apply(p: Params, x, cfg: ModelConfig, state=None):
                       device=x.device)
           if state is None else state["ssm"])
     f32 = torch.float32
-    if t >= CHUNK and t % CHUNK == 0 and state is None:
-        y, s_fin = _ssd_chunked(xh, bs.to(f32), cs.to(f32), dt_t,
-                                p["a_log"], p["d_skip"], s0, chunk=CHUNK)
-    else:
-        y, s_fin = _ssd_scan(xh, bs.to(f32), cs.to(f32), dt_t, p["a_log"],
-                             p["d_skip"], s0)
+    with span("model/ssd"):
+        if t >= CHUNK and t % CHUNK == 0 and state is None:
+            y, s_fin = _ssd_chunked(xh, bs.to(f32), cs.to(f32), dt_t,
+                                    p["a_log"], p["d_skip"], s0, chunk=CHUNK)
+        else:
+            y, s_fin = _ssd_scan(xh, bs.to(f32), cs.to(f32), dt_t,
+                                 p["a_log"], p["d_skip"], s0)
     y = y.reshape(bsz, t, d_inner).to(x.dtype)
-    y = rmsnorm(p["norm/scale"], y * F.silu(z), cfg.norm_eps)
+    if g > 1:   # the gated norm over each group's channels
+        y = rmsnorm(p["norm/scale"].unflatten(-1, (g, -1)),
+                    (y * F.silu(z)).unflatten(-1, (g, -1)),
+                    cfg.norm_eps).flatten(-2)
+    else:
+        y = rmsnorm(p["norm/scale"], y * F.silu(z), cfg.norm_eps)
     return y @ p["w_out"], {"conv": new_tail, "ssm": s_fin}
 
 
@@ -198,7 +253,8 @@ def make_mamba2_state(cfg: ModelConfig, b: int, dtype, device) -> dict:
     SSM state in f32."""
     d_inner, h, p, n = _dims(cfg)
     return {
-        "conv": torch.zeros((b, cfg.conv_kernel - 1, d_inner + 2 * n),
+        "conv": torch.zeros((b, cfg.conv_kernel - 1,
+                             d_inner + 2 * _groups(cfg) * n),
                             dtype=dtype, device=device),
         "ssm": torch.zeros((b, h, n, p), dtype=torch.float32, device=device),
     }

@@ -15,10 +15,17 @@ family and the VLM walk one stack ``blocks``; the MoE family
 ``dense_blocks`` (its ``first_dense_layers``) then ``moe_blocks``; RWKV-6
 ``blocks``; the hybrid (Zamba2) its Mamba-2 ``blocks`` in segments of
 ``attn_every`` with ONE shared attention block (``shared_attn``, leaves
-not stacked) after each whole segment; the audio encoder-decoder its
-decoder ``blocks``, each with cross-attention to the encoder's output
-(the family's encoder, ``enc_blocks`` over the ``frames``, run before
-the walk).  ``forward_train`` and ``decode_step`` both follow the walk.
+not stacked) after each whole segment, the JAX reference's
+simplification of Zamba2; the published Zamba2 block (``zamba2``, the
+port-only ``Zamba2Config``) its Mamba-2 ``blocks`` (grouped B/C) with,
+at each of its ``hybrid_layer_ids``, a ``hybrid_blocks`` step: shared
+block ``j % num_mem_blocks`` of ``shared_blocks`` over the hidden state
+and the token embedding concatenated, through use j's own adapter and
+``linear``, added to that layer's Mamba-2 input; the audio
+encoder-decoder its decoder ``blocks``, each with cross-attention to the
+encoder's output (the family's encoder, ``enc_blocks`` over the
+``frames``, run before the walk).  ``forward_train`` and
+``decode_step`` both follow the walk.
 Attention is multi-head latent attention (``models/mla.py``) where
 ``cfg.use_mla``, grouped-query attention elsewhere.
 
@@ -51,6 +58,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
+from repro_torch.spans import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -108,6 +116,27 @@ def _moe_block_specs(cfg: ModelConfig):
 def _mamba_block_specs(cfg: ModelConfig):
     return [("norm/scale", (cfg.d_model,), ONES),
             *((f"m2/{n}", s, i) for n, s, i in M2.mamba2_specs(cfg))]
+
+
+def _zamba2_shared_specs(cfg: ModelConfig):
+    """One shared block of Zamba2: attention over the 2 d wide hidden
+    state and embedding concatenated, its output d wide, and the
+    GELU-gated MLP (its adapters are the uses')."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    return [("attn/wq", (2 * d, hd), 0.02), ("attn/wk", (2 * d, hd), 0.02),
+            ("attn/wv", (2 * d, hd), 0.02), ("attn/wo", (hd, d), 0.02),
+            ("attn_norm/scale", (2 * d,), ONES),
+            ("mlp_norm/scale", (d,), ONES),
+            ("mlp/w_gate", (d, f), 0.02), ("mlp/w_up", (d, f), 0.02),
+            ("mlp/w_down", (f, d), 0.02)]
+
+
+def _zamba2_use_specs(cfg: ModelConfig):
+    """One use of a shared block (a hybrid layer): the MLP's rank-r
+    adapter and the output's ``linear``."""
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    return [("adapter/a", (d, r), 0.02), ("adapter/b_gate", (r, f), 0.02),
+            ("adapter/b_up", (r, f), 0.02), ("linear", (d, d), 0.02)]
 
 
 def _xattn_block_specs(cfg: ModelConfig):
@@ -253,6 +282,57 @@ def _mamba_block_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
     return x + y, None
 
 
+def _zamba2_scale(cfg: ModelConfig) -> float:
+    """Zamba2's softmax scale, ``(head_dim / 2) ** -0.5``."""
+    return (cfg.head_dim / 2) ** -0.5
+
+
+def _zamba2_shared(p, x, enc, cfg: ModelConfig, attend):
+    """What a use of a shared block adds to its Mamba-2 layer's input:
+    the block over ``concat(x, enc)``, ``enc`` the token embedding
+    (``attend(attention leaves, h)`` its attention), the MLP over the
+    attention's output with no residual, the use's adapter added, then
+    the use's ``linear``.  ``p``: the use's leaves, its block's under
+    ``shared/`` (``_zamba2_join``).  Span ``model/shared``, once a
+    use."""
+    with span("model/shared"):
+        h = L.rmsnorm(p["shared/attn_norm/scale"], torch.cat([x, enc], -1),
+                      cfg.norm_eps)
+        a = attend(_sub(p, "shared/attn/"), h)
+        h = L.rmsnorm(p["shared/mlp_norm/scale"], a, cfg.norm_eps)
+        y = L.gelu_mlp_apply(_sub(p, "shared/mlp/"), h, _sub(p, "adapter/"))
+        return y @ p["linear"]
+
+
+def _zamba2_mamba(p, x, t, cfg: ModelConfig, state=None):
+    """The hybrid layer's Mamba-2 layer (its leaves under ``mamba/``),
+    the shared block's output ``t`` added to its input: ``x +
+    mamba(norm(x + t))`` is the layer's output."""
+    return M2.mamba2_apply(_sub(p, "mamba/m2/"),
+                           L.rmsnorm(p["mamba/norm/scale"], x + t,
+                                     cfg.norm_eps), cfg, state)
+
+
+def _zamba2_hybrid_fwd(p, x, cfg: ModelConfig, moe=None, enc=None):
+    """A Zamba2 hybrid layer over ``enc``, the token embedding."""
+    t = _zamba2_shared(p, x, enc, cfg, lambda pa, h: L.attention_apply(
+        pa, h, cfg, scale=_zamba2_scale(cfg)))
+    y, _ = _zamba2_mamba(p, x, t, cfg)
+    return x + y, None
+
+
+def _zamba2_hybrid_decode(p, x, cfg: ModelConfig, st, pos: int, enc=None):
+    """``st``: the use's attention cache under ``kv/`` (its K/V
+    ``n_heads x head_dim`` wide), its Mamba-2 layer's ``conv`` and
+    ``ssm``."""
+    t = _zamba2_shared(p, x, enc, cfg, lambda pa, h: L.attention_decode(
+        pa, h, cfg, _sub(st, "kv/"), pos, scale=_zamba2_scale(cfg)))
+    y, new = _zamba2_mamba(p, x, t, cfg, st)
+    st["conv"].copy_(new["conv"])
+    st["ssm"].copy_(new["ssm"])
+    return x + y
+
+
 def _cross_attn(p, x, cfg: ModelConfig, kv_pair):
     return x + L.cross_attention_apply(
         _sub(p, "xattn/"), L.rmsnorm(p["xattn_norm/scale"], x, cfg.norm_eps),
@@ -308,7 +388,7 @@ def _rwkv_block_decode(p, x, cfg: ModelConfig, st, pos: int):
     return x + y
 
 
-def _mamba_block_decode(p, x, cfg: ModelConfig, st, pos: int):
+def _mamba_block_decode(p, x, cfg: ModelConfig, st, pos: int, enc=None):
     y, new = M2.mamba2_apply(_sub(p, "m2/"),
                              L.rmsnorm(p["norm/scale"], x, cfg.norm_eps),
                              cfg, st)
@@ -335,6 +415,12 @@ def _rwkv_state(cfg, b, cache_len, enc_len, dtype, device):
 
 def _mamba_state(cfg, b, cache_len, enc_len, dtype, device):
     return M2.make_mamba2_state(cfg, b, dtype, device)
+
+
+def _zamba2_hybrid_state(cfg, b, cache_len, enc_len, dtype, device):
+    return {**{f"kv/{k}": v for k, v in L.make_attention_cache(
+                cfg, b, cache_len, dtype, device).items()},
+            **M2.make_mamba2_state(cfg, b, dtype, device)}
 
 
 def _xattn_state(cfg, b, cache_len, enc_len, dtype, device):
@@ -365,8 +451,10 @@ class _Stack(NamedTuple):
     #                      None (a block without experts ignores it); enc:
     #                      the encoder's output, or None
     decode: Optional[Callable] = None   # (p, x, cfg, state entry, pos) ->
-    #                      x, the state in place (None only for a
-    #                      family's encoder, which is not on the walk)
+    #                      x, the state in place (None only for a stack
+    #                      no step of the walk runs, a family's encoder);
+    #                      ``enc=`` the token embedding too where the
+    #                      family's ``embedding_in``
     state_prefix: str = ""   # the decode state's top-level key, "kv/"
     #                      ("": the entry's keys are whole paths; only a
     #                      family's one stack)
@@ -384,6 +472,13 @@ class _Family(NamedTuple):
     #: output the walk's ``enc`` (the audio encoder-decoder's encoder),
     #: or None
     encoder: Optional[_Stack] = None
+    #: (views, cfg) -> views: the stacks' per-layer params as the walk
+    #: reads them, where a step reads leaves of several stacks (Zamba2's
+    #: hybrid layers); None: each stack's own (``_views``)
+    join: Optional[Callable] = None
+    #: the walk's ``enc`` is the token embedding (Zamba2's shared
+    #: blocks read it)
+    embedding_in: bool = False
 
 
 def _in_turn(stacks: List[_Stack], encoder: Optional[_Stack] = None
@@ -447,6 +542,54 @@ def _hybrid_family(cfg: ModelConfig) -> _Family:
     return _Family(stacks, walk)
 
 
+def _zamba2_blocks(cfg: ModelConfig) -> int:
+    """The shared blocks some hybrid layer uses: use j runs block ``j %
+    num_mem_blocks``, so only the first ``min(num_mem_blocks, uses)``
+    are held (a block no layer used would only get a zero gradient)."""
+    return min(cfg.num_mem_blocks, len(cfg.hybrid_layer_ids))
+
+
+def _zamba2_join(views: List[List[Params]], cfg: ModelConfig):
+    """Each hybrid step's params: its use's leaves, its shared block's
+    under ``shared/``, its Mamba-2 layer's under ``mamba/``."""
+    mamba, uses, shared = views
+    k = cfg.num_mem_blocks
+
+    def under(prefix, p):
+        return {prefix + name: v for name, v in p.items()}
+
+    hybrid = [{**uses[j], **under("shared/", shared[j % k]),
+               **under("mamba/", mamba[i])}
+              for j, i in enumerate(cfg.hybrid_layer_ids)]
+    return [mamba, hybrid, shared]
+
+
+def _zamba2_family(cfg: ModelConfig) -> _Family:
+    """Zamba2: every layer a Mamba-2 layer (``blocks``); at the hybrid
+    layers the ``hybrid_blocks`` step (``_zamba2_hybrid_fwd``) runs the
+    shared block and that layer's Mamba-2 layer, each use with its own
+    decode state (its attention cache and the layer's Mamba-2 state).
+    The shared blocks' gradients are the sums over their uses."""
+    ids = list(cfg.hybrid_layer_ids)
+    stacks = [_Stack("blocks/", cfg.n_layers, _mamba_block_specs,
+                     _mamba_block_fwd, _mamba_block_decode, "blocks/",
+                     _mamba_state),
+              _Stack("hybrid_blocks/", len(ids), _zamba2_use_specs,
+                     _zamba2_hybrid_fwd, _zamba2_hybrid_decode,
+                     "hybrid_blocks/", _zamba2_hybrid_state),
+              # read only through the hybrid steps' views
+              _Stack("shared_blocks/", _zamba2_blocks(cfg),
+                     _zamba2_shared_specs, None, None, "shared_blocks/")]
+    walk, plain = [], 0
+    for layer in range(cfg.n_layers):
+        if layer in ids:
+            walk.append((1, ids.index(layer), ids.index(layer)))
+        else:
+            walk.append((0, layer, plain))
+            plain += 1
+    return _Family(stacks, walk, join=_zamba2_join, embedding_in=True)
+
+
 def _audio_family(cfg: ModelConfig) -> _Family:
     """The decoder's blocks over the tokens, the encoder (bidirectional
     dense blocks) over the frames before them."""
@@ -464,6 +607,7 @@ _FAMILIES = {
     "ssm": _ssm_family,
     "hybrid": _hybrid_family,
     "audio": _audio_family,
+    "zamba2": _zamba2_family,
 }
 
 
@@ -487,6 +631,13 @@ def _views(params: Params, st: _Stack) -> List[Params]:
     if st.n is None:
         return [_sub(params, st.prefix)]
     return _layers(params, st.prefix, st.n)
+
+
+def _all_views(params: Params, fam: _Family, cfg: ModelConfig
+               ) -> List[List[Params]]:
+    """The params of each walk step, by stack and layer."""
+    views = [_views(params, st) for st in fam.stacks]
+    return views if fam.join is None else fam.join(views, cfg)
 
 
 def _entries(fam: _Family, si: int) -> int:
@@ -531,8 +682,8 @@ def forward_train(params: Params, cfg: ModelConfig, batch, wires=None,
     moe_wire = wires.get("moe") if wires is not None else None
     fam = _family(cfg)
     x = _embed_inputs(params, cfg, batch)
-    enc = _encode(params, fam, cfg, batch)
-    views = [_views(params, st) for st in fam.stacks]
+    enc = x if fam.embedding_in else _encode(params, fam, cfg, batch)
+    views = _all_views(params, fam, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     e, prev = None, None
     for li, (si, layer, _) in enumerate(fam.walk):
@@ -591,13 +742,17 @@ def make_decode_state(cfg: ModelConfig, b: int, cache_len: int,
     reference's; ``{ckv,kpos,kr}`` with MLA),
     ``blocks/{cm_last,tm_last,wkv}`` for RWKV-6, ``blocks/{conv,ssm}`` and
     ``shared_kv/...`` (one entry a use of the shared block) for the
-    hybrid, ``kv/...`` and ``xkv/{k,v}`` ((L, B, ``enc_len``, KV, Dh)
+    hybrid, ``blocks/{conv,ssm}`` (the plain Mamba-2 layers) and
+    ``hybrid_blocks/{conv,kv/...,ssm}`` (one entry a hybrid layer) for
+    Zamba2, ``kv/...`` and ``xkv/{k,v}`` ((L, B, ``enc_len``, KV, Dh)
     zeros: the encoder's keys and values) for the audio
     encoder-decoder."""
     fam = _family(cfg)
     dtype = getattr(torch, cfg.dtype)
     state = {}
     for si, st in enumerate(fam.stacks):
+        if st.state is None:        # a stack no step of the walk decodes
+            continue
         n = _entries(fam, si)
         one = st.state(cfg, b, cache_len, enc_len, dtype, device)
         state.update({st.state_prefix + k: v[None].repeat((n,) + (1,) * v.dim())
@@ -611,12 +766,13 @@ def decode_step(params: Params, cfg: ModelConfig, tok: torch.Tensor,
     absolute position written (a host int).  Updates ``state`` in place;
     returns ``(logits (B, 1, V), state)``."""
     fam = _family(cfg)
-    views = [_views(params, st) for st in fam.stacks]
+    views = _all_views(params, fam, cfg)
     entries = [_layers(state, st.state_prefix, _entries(fam, si))
                for si, st in enumerate(fam.stacks)]
     x = L.embed(params["embed/table"], tok)
+    kw = {"enc": x} if fam.embedding_in else {}
     for si, layer, entry in fam.walk:
         x = fam.stacks[si].decode(views[si][layer], x, cfg,
-                                  entries[si][entry], pos)
+                                  entries[si][entry], pos, **kw)
     x = L.rmsnorm(params["final_norm/scale"], x, cfg.norm_eps)
     return L.lm_head(params, x, cfg), state

@@ -17,6 +17,11 @@ host's issue time, not the device's work.  ``span`` therefore
     synchronisation, no tensor op.  Nothing a span does touches what
     the step computes.
 
+``count(name, n)`` is a counter beside the spans: with a recorder
+active it adds ``n`` to the recorder's entry ``name``, a count with no
+time of its own (so the recorder's tables show it as a span), and
+with none it does nothing.
+
 ``gc_spans()`` adds the ``host/gc`` span: each Python garbage
 collection inside the block is a span, through ``gc.callbacks``.
 
@@ -75,6 +80,14 @@ class SpanRecorder:
         cur[1] += seconds
         cur[2] += seconds - inner
         cur[3].add(parent)
+
+    def count(self, name: str, n: int) -> None:
+        """A counter: ``n`` more under ``name``, no time, its parent the
+        span open last on this thread."""
+        stack = self._stack()
+        cur = self.spans.setdefault(name, [0, 0.0, 0.0, set()])
+        cur[0] += n
+        cur[3].add(stack[-1][0] if stack else None)
 
     def snapshot(self) -> dict:
         """{name: {count, total_s, mean_s, self_s, parent}} -- drops into
@@ -148,6 +161,13 @@ def span(name: str):
     if rec is None and not torch.autograd._profiler_enabled():
         return _OFF
     return _Span(name, rec)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the active recorder, if any
+    (module docstring)."""
+    if _ACTIVE is not None:
+        _ACTIVE.count(name, n)
 
 
 #: the ``host/gc`` span of the collection under way (collections do not
