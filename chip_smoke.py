@@ -1189,11 +1189,16 @@ def topk_edges(gen):
 
 
 def phase_natural_topk_kernels(cfg):
-    """``shifted_natural_2d`` and ``block_topk_2d`` bitwise against their
-    plain versions on the card: at every leaf layout their wrappers give
-    ``cfg``'s leaves (f32, gradient-sized g and h), on the edge sets, in
-    bf16; then both timed at the largest layout (the embedding's)."""
-    from repro_torch.kernels.natural.kernel import shifted_natural_2d
+    """``shifted_natural_2d``, ``natural_message`` and ``block_topk_2d``
+    bitwise against their plain versions on the card: at every leaf
+    layout their wrappers give ``cfg``'s leaves (f32, gradient-sized g and
+    h; ``natural_message`` at every leaf's size, also as an unaligned
+    worker row), on the edge sets (``natural_message`` also cut to 1, 3,
+    127 and 129 elements and at offsets), in bf16; then each timed at the
+    largest layout (the embedding's)."""
+    from repro_torch.core.compressors import NaturalCompression
+    from repro_torch.kernels.natural.kernel import (natural_message,
+                                                    shifted_natural_2d)
     from repro_torch.kernels.natural.ops import natural_layout
     from repro_torch.kernels.natural.ref import shifted_natural_ref
     from repro_torch.kernels.topk.kernel import block_topk_2d
@@ -1211,7 +1216,9 @@ def phase_natural_topk_kernels(cfg):
         log("topk ptxas: the library was built before this run; no report")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    err = {"shifted_natural_2d": 0.0, "block_topk_2d": 0.0}
+    err = {"shifted_natural_2d": 0.0, "block_topk_2d": 0.0,
+           "natural_message": 0.0}
+    codec = NaturalCompression()
 
     def nat(g, h, u, block, what):
         out = shifted_natural_2d(g, h, u, block_rows=block)
@@ -1221,6 +1228,15 @@ def phase_natural_topk_kernels(cfg):
               f"shifted_natural_2d differs from its plain version: {what}")
         err["shifted_natural_2d"] = max(err["shifted_natural_2d"],
                                         finite_err(out, ref))
+
+    def msg(g, h, u, what, out=None):
+        got = natural_message(g, h, u, out=out)
+        ref = codec(lambda shape: u, g - h)
+        torch.cuda.synchronize()
+        check(bool(same_bits(got, ref).all()) and got.dtype == ref.dtype,
+              f"natural_message differs from the codec's round trip: {what}")
+        err["natural_message"] = max(err["natural_message"],
+                                     finite_err(got, ref))
 
     def topk(x, k, block, what):
         out = block_topk_2d(x, k=k, block_rows=block)
@@ -1243,6 +1259,20 @@ def phase_natural_topk_kernels(cfg):
             nat(g.bfloat16(), h.bfloat16(), u, block,
                 f"bf16 ({rows}, 128) block {block}")
         del g, h, u
+    for n in sorted(set(sizes), reverse=True):
+        g = torch.randn(n, generator=gen, device=dev) * 1e-3
+        h = torch.randn(n, generator=gen, device=dev) * 1e-3
+        u = torch.rand(n, generator=gen, device=dev)
+        msg(g, h, u, f"{n} elements")
+        if n <= 1 << 20:
+            msg(g.bfloat16(), h.bfloat16(), u, f"bf16 {n} elements")
+            # worker 1's row of a 2-row stack of n + 1: starts unaligned
+            gw = torch.randn((2, n + 1), generator=gen, device=dev)
+            hw = torch.randn((2, n + 1), generator=gen, device=dev)
+            uw = torch.rand(n + 1, generator=gen, device=dev)
+            out = torch.empty_like(gw)
+            msg(gw[1], hw[1], uw, f"unaligned row of {n + 1}", out=out[1])
+        del g, h, u
     for block, rows, k in topk_layouts:
         x = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
         topk(x, k, block, f"({rows}, 128) block {block} k {k}")
@@ -1250,14 +1280,25 @@ def phase_natural_topk_kernels(cfg):
             topk(x.bfloat16(), k, block, f"bf16 ({rows}, 128) block {block}")
         del x
     log(f"natural/topk kernels: bitwise equal to plain at every qwen3-0.6b "
-        f"leaf layout (natural {nat_layouts}; topk (block, rows, k) "
-        f"{topk_layouts}), f32, and bf16 at the small ones")
+        f"leaf layout (natural {nat_layouts}; natural_message at every "
+        f"leaf's size {sorted(set(sizes))}; topk (block, rows, k) "
+        f"{topk_layouts}), f32, and bf16 and unaligned rows at the small "
+        f"ones")
 
     g, h = natural_edges()
     for seed in range(3):
         u = torch.rand(g.shape, generator=gen, device=dev)
         nat(g, h, u, 1, f"edge set, u draw {seed}")
         nat(g.bfloat16(), h.bfloat16(), u, 1, f"bf16 edge set, draw {seed}")
+        u[:, ::3] = 0.0
+        u[:, 1::3] = 1.0 - 2.0 ** -24          # the largest f32 below 1
+        for dt in (torch.float32, torch.bfloat16):
+            gd, hd = g.to(dt).reshape(-1), h.to(dt).reshape(-1)
+            msg(gd, hd, u.reshape(-1), f"{dt} edge set, draw {seed}")
+            for n in (1, 3, 127, 129):
+                for at in (0, 1, 2, 5):
+                    msg(gd[at:at + n], hd[at:at + n], u.reshape(-1)[:n],
+                        f"{dt} edge set, {n} elements at {at}")
     for name, x, k, block in topk_edges(gen):
         topk(x, k, block, f"{name} block {block} k {k}")
         topk(x.bfloat16(), k, block, f"bf16 {name} block {block} k {k}")
@@ -1272,8 +1313,10 @@ def phase_natural_topk_kernels(cfg):
           "block_topk differs from its plain version on a padded last block")
     log("natural/topk kernels: bitwise equal to plain on the edge sets "
         "(zeros, subnormals, NaN, inf, 2^e and 1-2 ulps below for every "
-        "exponent, bf16; ties, a NaN block, k = 1, k = block, block rows 1, "
-        "8, 28, a padded last block)")
+        "exponent, bf16; natural_message also with u = 0 and u just under "
+        "1, cut to 1, 3, 127 and 129 elements at offsets 0, 1, 2 and 5; "
+        "ties, a NaN block, k = 1, k = block, block rows 1, 8, 28, a "
+        "padded last block)")
 
     # timing at the embedding's layout, no padding
     block, rows = nat_layouts[0]
@@ -1281,10 +1324,13 @@ def phase_natural_topk_kernels(cfg):
     g = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
     h = torch.randn((rows, 128), generator=gen, device=dev) * 1e-3
     u = torch.rand((rows, 128), generator=gen, device=dev)
+    out = torch.empty_like(g)
     tblock, trows, k = topk_layouts[0]
     t = {
         "nat": time_ms(lambda: shifted_natural_2d(g, h, u, block_rows=block)),
         "nat_plain": time_ms(lambda: shifted_natural_ref(g, h, u)),
+        "msg": time_ms(lambda: natural_message(g, h, u, out=out)),
+        "msg_plain": time_ms(lambda: codec(lambda shape: u, g - h)),
         "topk": time_ms(lambda: block_topk_2d(g, k=k, block_rows=tblock)),
         "topk_plain": time_ms(lambda: block_topk_bisect_ref(g, k=k,
                                                             block=tblock)),
@@ -1295,7 +1341,8 @@ def phase_natural_topk_kernels(cfg):
     # natural: g, h, u read once and out written once (16 bytes an
     # element); ~15 operations an element (subtract, abs, the exponent
     # and mantissa masks, compare, select, doubling, sign, add, three
-    # flush tests).  top-k: x read once, out written once (8 bytes);
+    # flush tests); natural_message the same bytes and fewer operations.
+    # top-k: x read once, out written once (8 bytes);
     # TOPK_OPS integer operations an element at the f32 rate (the key:
     # a mask, a flush test and select, a max; 4 radix passes of a shift,
     # a compare and an atomic add; the write's compare and select)
@@ -1303,12 +1350,17 @@ def phase_natural_topk_kernels(cfg):
     tb, tby = bound_ms(8 * n, TOPK_OPS * n)
     log(f"natural/topk timing at ({rows}, 128) f32 (the embedding leaf), "
         f"median of 20 (ms): shifted_natural_2d {t['nat']:.4f} (plain "
-        f"{t['nat_plain']:.4f}, bound {nb:.4f} by {nby}); block_topk_2d "
+        f"{t['nat_plain']:.4f}, bound {nb:.4f} by {nby}); natural_message "
+        f"{t['msg']:.4f} ({100 * nb / t['msg']:.1f}% of the bound; the "
+        f"codec's round trip {t['msg_plain']:.4f}); block_topk_2d "
         f"block {tblock} k {k} {t['topk']:.4f} (plain {t['topk_plain']:.4f}"
         f", bound {tb:.4f} by {tby}); no single PyTorch call computes "
-        f"either; the selection alone, torch.topk of |g| in rows of "
-        f"{tblock * 128} (k {k}; not the function): {t['selection']:.4f}")
-    del g, h, u, a
+        f"any of the three; the selection alone, torch.topk of |g| in rows "
+        f"of {tblock * 128} (k {k}; not the function): "
+        f"{t['selection']:.4f}")
+    check(nb / t["msg"] >= 0.8, f"natural_message at {t['msg']:.4f} ms, "
+          f"under 80% of its {nb:.4f} ms bound")
+    del g, h, u, a, out
     torch.cuda.empty_cache()
     return [
         {"name": "shifted_natural_2d", "route": "cuda",
@@ -1316,6 +1368,12 @@ def phase_natural_topk_kernels(cfg):
          "replaces": "src/repro/kernels/natural/kernel.py:51",
          "max_abs_err": err["shifted_natural_2d"], "ms": t["nat"],
          "plain_ms": t["nat_plain"], "bound_ms": nb, "bound_by": nby,
+         "library_ms": None},
+        {"name": "natural_message", "route": "cuda",
+         "source": "src/repro_torch/kernels/natural/csrc/natural.cu",
+         "replaces": None,
+         "max_abs_err": err["natural_message"], "ms": t["msg"],
+         "plain_ms": t["msg_plain"], "bound_ms": nb, "bound_by": nby,
          "library_ms": None},
         {"name": "block_topk_2d", "route": "cuda",
          "source": "src/repro_torch/kernels/topk/csrc/topk.cu",
@@ -1328,16 +1386,20 @@ def phase_natural_topk_kernels(cfg):
 
 def phase_entry_points(g0, h0):
     """The slice's entry points over every leaf: ``shifted_natural(rand,
-    g, h)`` and ``block_topk(g, q=TOPK_Q)``, g worker 0's gradient and h
-    its DIANA shift (full-size qwen3-0.6b, from the natural path).  The
-    launch counts are reset just before and read just after; then every
-    output is held bitwise against the plain versions, and the natural
-    output against ``h + NaturalCompression.decode(encode(g - h))`` with
-    the same uniforms wherever ``|g - h| >= 2^-126`` (the kernel and the
-    codec floor log2 differently below that) and neither h nor the
-    output is subnormal (the kernel flushes them)."""
+    g, h)``, ``natural_message(g, h, u)`` and ``block_topk(g,
+    q=TOPK_Q)``, g worker 0's gradient and h its DIANA shift (full-size
+    qwen3-0.6b, from the natural path).  The launch counts are reset just
+    before and read just after; then every output is held bitwise
+    against the plain versions (``natural_message`` against the codec's
+    ``decode(encode(g - h))`` with the same uniforms, at every element),
+    and the shifted output against ``h + NaturalCompression.decode(
+    encode(g - h))`` with the same uniforms wherever ``|g - h| >=
+    2^-126`` (the kernel and the codec floor log2 differently below that)
+    and neither h nor the output is subnormal (the kernel flushes
+    them)."""
     from repro_torch.core.compressors import NaturalCompression, ShapeDtype
-    from repro_torch.kernels.natural.kernel import shifted_natural_2d
+    from repro_torch.kernels.natural.kernel import (natural_message,
+                                                    shifted_natural_2d)
     from repro_torch.kernels.natural.ops import natural_layout, shifted_natural
     from repro_torch.kernels.natural.ref import shifted_natural_ref
     from repro_torch.kernels.topk.kernel import block_topk_2d
@@ -1345,7 +1407,7 @@ def phase_entry_points(g0, h0):
     from repro_torch.kernels.topk.ref import block_topk_bisect_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    drawn, nat_out, topk_out = {}, {}, {}
+    drawn, nat_out, topk_out, msg_u, msg_out = {}, {}, {}, {}, {}
 
     def draw(key):
         def rand(shape):
@@ -1353,18 +1415,23 @@ def phase_entry_points(g0, h0):
             return drawn[key]
         return rand
 
+    for key, g in g0.items():
+        msg_u[key] = torch.rand(g.shape, generator=gen, device="cuda")
     torch.cuda.synchronize()
     shifted_natural_2d.launches = block_topk_2d.launches = 0
+    natural_message.launches = 0
     t0 = time.perf_counter()
     for key in g0:
         nat_out[key] = shifted_natural(draw(key), g0[key], h0[key])
+        msg_out[key] = natural_message(g0[key], h0[key], msg_u[key])
         topk_out[key] = block_topk(g0[key], q=TOPK_Q)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"shifted_natural_2d": shifted_natural_2d.launches,
-                "block_topk_2d": block_topk_2d.launches}
+                "block_topk_2d": block_topk_2d.launches,
+                "natural_message": natural_message.launches}
     leaves = len(g0)
-    check(launches == {"shifted_natural_2d": leaves, "block_topk_2d": leaves},
+    check(launches == dict.fromkeys(launches, leaves),
           f"entry points: launches {launches}, expected {leaves} each")
 
     codec = NaturalCompression()
@@ -1385,6 +1452,11 @@ def phase_entry_points(g0, h0):
         check(bool(same_bits(nat_out[key][mask], via[mask]).all()),
               f"shifted_natural differs from h + NaturalCompression(g - h) "
               f"at {key}")
+        plain = codec(lambda shape: msg_u[key], g - h)
+        check(bool(same_bits(msg_out[key], plain).all()),
+              f"natural_message differs from NaturalCompression's "
+              f"decode(encode(g - h)) at {key}")
+        msg_out[key] = msg_u[key] = plain = None
         compared += int(mask.sum())
         total += n
         tblock, trows, k = topk_layout(n, TOPK_Q)
@@ -1396,8 +1468,9 @@ def phase_entry_points(g0, h0):
         del payload, via, mask, x, u, ref, tref
     log(f"entry points over {leaves} full-size qwen3-0.6b leaves ({total:,} "
         f"elements, worker 0's gradient and DIANA shift): launches "
-        f"{launches} (as expected), {secs:.4f} s for both wrappers; outputs "
-        f"bitwise equal to the plain versions; natural equal to h + "
+        f"{launches} (as expected), {secs:.4f} s for the three wrappers; "
+        f"outputs bitwise equal to the plain versions (natural_message to "
+        f"the codec's round trip at every element); natural equal to h + "
         f"NaturalCompression(g - h) at {compared:,} of {total:,} elements "
         f"(the rest below 2^-126); top-k kept {kept:,} ({kept / total:.4f})")
     return launches
@@ -1838,7 +1911,8 @@ def state_digests(state):
 def reset_launches():
     """Every kernel wrapper by name, each launch count set to 0 (and the
     dequant's accumulating count)."""
-    from repro_torch.kernels.natural.kernel import shifted_natural_2d
+    from repro_torch.kernels.natural.kernel import (natural_message,
+                                                    shifted_natural_2d)
     from repro_torch.kernels.q8ring import kernel as K
     from repro_torch.kernels.topk.kernel import block_topk_2d
     from repro_torch.kernels.wkv6 import kernel as WK
@@ -1849,7 +1923,8 @@ def reset_launches():
                 "wkv6_forward": WK.wkv6_forward,
                 "wkv6_backward": WK.wkv6_backward,
                 "shifted_natural_2d": shifted_natural_2d,
-                "block_topk_2d": block_topk_2d}
+                "block_topk_2d": block_topk_2d,
+                "natural_message": natural_message}
     for fn in wrappers.values():
         fn.launches = 0
     K.q8_dequant_add_2d.acc_launches = 0
@@ -1966,7 +2041,8 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
     # forward and one backward per worker and step (no recompute), each
     # launched in step 1 and by the graph of a worker's pass in steps 2-3
     # (the capture issues a worker's once, each replay launches them).  The
-    # natural, dithering and top-k codecs are plain PyTorch, as the
+    # natural codec's DIANA message is one natural_message a leaf, worker
+    # and step; the dithering and top-k codecs are plain PyTorch, as the
     # reference's are: no kernel.  Counted before the run, from the code's
     # specs and layouts
     leaves = len(param_specs(cfg))
@@ -1977,7 +2053,9 @@ def phase_main_path(cfg, comm_mode, codec="q8_block", keep=False,
               "q8_quantize_chunk_3d": rings * n * n * STEPS,
               "q8_dequant_add_2d": msgs + (rings * n * n + stage) * STEPS,
               "wkv6_forward": wkv, "wkv6_backward": wkv,
-              "shifted_natural_2d": 0, "block_topk_2d": 0}
+              "shifted_natural_2d": 0, "block_topk_2d": 0,
+              "natural_message": leaves * w * STEPS if codec == "natural"
+              else 0}
     expect_acc = rings * n * (n - 1) * STEPS
     what = f"main path {cfg.name} {comm_mode} {codec}" + (
         "" if rule == "diana" else f" {rule}") + mesh_name(mesh_kw) + (
@@ -2928,7 +3006,7 @@ def phase_obs(cfg):
     expect_off = {"q8_quantize_2d": msgs, "q8_quantize_chunk_3d": chunks,
                   "q8_dequant_add_2d": msgs + chunks, "wkv6_forward": 0,
                   "wkv6_backward": 0, "shifted_natural_2d": 0,
-                  "block_topk_2d": 0}
+                  "block_topk_2d": 0, "natural_message": 0}
     expect_on = dict(expect_off, q8_quantize_2d=msgs + 5 * W,
                      q8_dequant_add_2d=msgs + chunks + 4 * W)
 
@@ -3823,11 +3901,13 @@ def main(argv=None):
     phase_convex(card)
     # each kernel's launches on the path of the slice that ported it: the
     # q8 kernels on the ring path (which runs all three), WKV6 on RWKV-6's,
-    # the natural and top-k kernels on their entry points
+    # the natural and top-k kernels on their entry points, the natural
+    # message on DIANA + natural's
     own_path = {"wkv6_forward": "rwkv6-3b dense q8_block",
                 "wkv6_backward": "rwkv6-3b dense q8_block",
                 "shifted_natural_2d": "qwen3-0.6b entry points",
-                "block_topk_2d": "qwen3-0.6b entry points"}
+                "block_topk_2d": "qwen3-0.6b entry points",
+                "natural_message": "qwen3-0.6b dense natural"}
     for k in kernels:
         k["launches"] = by_path[own_path.get(
             k["name"], "qwen3-0.6b q8_ring_fused q8_block")][k["name"]]

@@ -407,6 +407,46 @@ def encode_decode_workers(codec, noise: LeafNoise, leaf: torch.Tensor
     return payloads, out
 
 
+def bits_aot(codec, wleaf_like) -> float:
+    """Structural wire bits of ``codec``'s payloads for a W-stacked leaf,
+    from its shape and dtype alone (``Compressor.payload_like``)."""
+    w, *inner = wleaf_like.shape
+    like = ShapeDtype(tuple(inner), wleaf_like.dtype, torch.device("meta"))
+    return float(w * codec.wire_bits(codec.payload_like(like)))
+
+
+def _shifted_round_trip(codec, h):
+    """Whether ``Q(g - h)`` is the codec's own ``shifted_round_trip``: a
+    shift, and a codec that has one (the natural codec)."""
+    return h is not None and hasattr(codec, "shifted_round_trip")
+
+
+def shifted_message_workers(codec, noise: LeafNoise, g: torch.Tensor, h
+                            ) -> Tuple[torch.Tensor, float]:
+    """One uplink leaf's message ``Q(g - h)``: the decoded ``(W, ...)``
+    messages of the worker-stacked ``g`` and ``h`` (``h`` None: ``Q(g)``)
+    and their structural wire bits.  A codec with ``shifted_round_trip``
+    takes g, h and the workers' draws whole (the natural codec: one
+    kernel a worker on the card), and the bits are ``bits_aot``'s, from
+    the shapes; any other codec, or no shift, sends ``g - h`` through
+    ``encode_decode_workers``."""
+    if not _shifted_round_trip(codec, h):
+        payloads, m = encode_decode_workers(codec, noise,
+                                            g if h is None else g - h)
+        return m, codec.wire_bits(payloads)
+    draws = worker_draws(codec, noise, g.shape[0])
+    return codec.shifted_round_trip(draws, g, h), bits_aot(codec, g)
+
+
+def shifted_message_row(codec, draw, g: torch.Tensor, h) -> torch.Tensor:
+    """ONE worker's row of ``shifted_message_workers``: ``g`` and ``h``
+    without the worker axis, ``draw`` the worker's draw object.  Returns
+    the decoded message only, through the same route."""
+    if not _shifted_round_trip(codec, h):
+        return codec(draw, g if h is None else g - h)
+    return codec.shifted_round_trip([draw], g[None], h[None])[0]
+
+
 def encode_meta_free(codec, rand, block: torch.Tensor):
     """Encode for forwarded-payload transports (ring hops): the decoder
     sees ONLY the payload, so a codec that needs side information in

@@ -301,7 +301,10 @@ class NaturalCompression(Unbiased):
 
     Plain PyTorch, as the reference's is plain jnp (the fused
     ``kernels/natural`` kernel computes the shifted estimator with its own
-    floor).  ``e = floor(log2(max(|x|, 2^-126)))`` and ``2^e`` are read
+    floor).  A shift rule's message ``decode(encode(g - h))`` is
+    ``shifted_round_trip``, which on the card runs as the
+    ``natural_message`` kernel, bit for bit this codec, which is its plain
+    version.  ``e = floor(log2(max(|x|, 2^-126)))`` and ``2^e`` are read
     from the float's bits, exactly; XLA on the CPU flushes a subnormal x
     to zero before the codec sees it, so the port does too (sign 0).  The
     exponent codes span [-126, 128] (255 codes -> 8 wire bits); a NaN
@@ -323,6 +326,18 @@ class NaturalCompression(Unbiased):
         sign = torch.sign(xf).nan_to_num(nan=0.0).to(torch.int8)
         return {"exp": PackedBits(e_out, 8), "sign": PackedBits(sign, 1)}, {}
 
+    def payload_like(self, like):
+        """``encode``'s payload for an input like ``like``, built from its
+        shape alone: running ``encode`` on meta tensors would load
+        PyTorch's Python meta kernels, seconds at a process's first
+        call.  It must stay in step with ``encode``: the same keys,
+        widths and container dtypes (``shifted_round_trip``'s bits are
+        counted from it)."""
+        return {"exp": PackedBits(torch.empty(like.shape, dtype=torch.int16,
+                                              device="meta"), 8),
+                "sign": PackedBits(torch.empty(like.shape, dtype=torch.int8,
+                                               device="meta"), 1)}
+
     def decode(self, payload, meta, like):
         code = payload["exp"].data.to(torch.int32).clamp(-126, 128)
         mag = torch.where(code > 127, float("inf"),
@@ -330,8 +345,38 @@ class NaturalCompression(Unbiased):
         out = payload["sign"].data.to(torch.float32) * mag
         return out.reshape(like.shape).to(like.dtype)
 
+    def shifted_round_trip(self, draws, g, h):
+        """A shift rule's message: the decoded ``(W, ...)`` round trips
+        ``decode(encode(g[j] - h[j]))`` of the worker-stacked ``g`` and
+        ``h``, worker j's uniforms drawn by ``draws[j]`` as ``encode``
+        draws them, in worker order (``comm.wire.shifted_message_workers``
+        finds it with ``hasattr``).  On the card each row is one
+        ``natural_message`` kernel, its g and h made contiguous; elsewhere
+        (the CPU, meta) this codec's own ``encode`` and ``decode``.  The
+        same bits either way; ``g - h`` is never built whole."""
+        kernel = _message_kernel(g)
+        out = torch.empty(g.shape, dtype=torch.result_type(g, h),
+                          device=g.device)
+        for j, draw in enumerate(draws):
+            if kernel is None:
+                out[j] = self(draw, g[j] - h[j])
+            else:
+                kernel(g[j].contiguous(), h[j].contiguous(),
+                       draw(tuple(g.shape[1:])), out=out[j])
+        return out
+
     def omega(self, d):
         return 0.125
+
+
+def _message_kernel(t: torch.Tensor):
+    """``NaturalCompression.shifted_round_trip``'s route, by device alone:
+    the ``natural_message`` kernel for a CUDA tensor, else None."""
+    if t.device.type != "cuda":
+        return None
+    from repro_torch.kernels.natural.kernel import natural_message
+
+    return natural_message
 
 
 def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -49,8 +49,11 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.comm.channel import Channel, SimChannel
-from repro_torch.comm.wire import LeafNoise, encode_decode_workers, worker_draws
-from repro_torch.core.compressors import Compressor, ShapeDtype, Zero, f32_bits
+from repro_torch.comm.wire import (LeafNoise, bits_aot,
+                                   encode_decode_workers,
+                                   shifted_message_row,
+                                   shifted_message_workers, worker_draws)
+from repro_torch.core.compressors import Compressor, Zero, f32_bits
 from repro_torch.dist.collectives import WorkerMean, drop_payload_rows
 
 Tree = Dict[str, torch.Tensor]
@@ -76,20 +79,6 @@ def residual_sq_diag(wgrads: Tree, h: Optional[Tree]):
         return {"grad_sq": grad_sq, "shift_residual_sq": grad_sq}
     resid_sq = _sq(g - h[k] for k, g in wgrads.items()) / w
     return {"grad_sq": grad_sq, "shift_residual_sq": resid_sq}
-
-
-def _encode_decode(q: Compressor, draw, x: torch.Tensor) -> torch.Tensor:
-    """One worker's round trip: ``decode(encode(draw, x))``."""
-    payload, meta = q.encode(draw, x)
-    return q.decode(payload, meta, ShapeDtype.of(x))
-
-
-def _bits_aot(q: Compressor, wleaf_like) -> float:
-    """Structural wire bits of ``q``'s payloads for a W-stacked leaf, from
-    its shape and dtype alone (``Compressor.payload_like``)."""
-    w, *inner = wleaf_like.shape
-    like = ShapeDtype(tuple(inner), wleaf_like.dtype, torch.device("meta"))
-    return float(w * q.wire_bits(q.payload_like(like)))
 
 
 def dense_message_bits(wgrads_like: Tree) -> float:
@@ -126,11 +115,11 @@ class ShiftRule:
         return {k: torch.zeros_like(p) for k, p in params.items()}
 
     def message_leaf(self, q: Compressor, noise, g, h):
-        """One leaf's wire message: ``Q(g - h)`` encoded per worker.
-        Returns ``(decoded W-stacked message, structural wire bits)``."""
-        diff = g if h is None else g - h
-        payloads, m = encode_decode_workers(q, noise, diff)
-        return m, q.wire_bits(payloads)
+        """One leaf's wire message: ``Q(g - h)`` encoded per worker
+        (``comm.wire.shifted_message_workers``: the natural codec runs
+        its own ``shifted_round_trip``).  Returns ``(decoded W-stacked
+        message, structural wire bits)``."""
+        return shifted_message_workers(q, noise, g, h)
 
     def message(self, q: Compressor, noise, wgrads: Tree, h: Optional[Tree]):
         """``message_leaf`` over the tree, each leaf's noise bound to its
@@ -159,12 +148,12 @@ class ShiftRule:
         """ONE worker's row of ``message_leaf``: ``g`` and ``h`` without
         the worker axis, ``draw`` that worker's entry of
         ``message_draws``.  Returns the decoded message only."""
-        return _encode_decode(q, draw, g if h is None else g - h)
+        return shifted_message_row(q, draw, g, h)
 
     def message_bits_aot(self, q: Compressor, wleaf_like) -> float:
         """``message_leaf``'s wire bits for a W-stacked leaf like
         ``wleaf_like``, from its shape and dtype alone."""
-        return _bits_aot(q, wleaf_like)
+        return bits_aot(q, wleaf_like)
 
     def aux(self, noise, wgrads, h):
         """Tree-level extras: ``(aux carried to apply, extra wire bits)``."""
@@ -242,14 +231,14 @@ class DianaShift(ShiftRule):
     c: Compressor = field(default_factory=Zero)
 
     def message_leaf(self, q, noise, g, h):
-        diff = g if h is None else g - h
         qnoise = noise.with_part("q")
         if isinstance(self.c, Zero):
             # C decodes to exact zeros and sends an empty payload, so
             # x - C(x) and C(x) + Q(...) are the identity bit for bit and
             # the zero tensors the reference builds are skipped
-            payloads, qm = encode_decode_workers(q, qnoise, diff)
-            return qm, 0.0 + q.wire_bits(payloads)
+            qm, bits = shifted_message_workers(q, qnoise, g, h)
+            return qm, 0.0 + bits
+        diff = g if h is None else g - h
         cpay, cm = encode_decode_workers(self.c, noise.with_part("c"), diff)
         qpay, qm = encode_decode_workers(q, qnoise, diff - cm)
         return (drop_payload_rows(cm.add_(qm)),
@@ -261,14 +250,14 @@ class DianaShift(ShiftRule):
         return [{"c": c, "q": d} for c, d in zip(cd, qd)]
 
     def message_leaf_worker(self, q, draw, g, h):
-        diff = g if h is None else g - h
         if isinstance(self.c, Zero):      # message_leaf's shortcut
-            return _encode_decode(q, draw["q"], diff)
-        cm = _encode_decode(self.c, draw["c"], diff)
-        return cm + _encode_decode(q, draw["q"], diff - cm)
+            return shifted_message_row(q, draw["q"], g, h)
+        diff = g if h is None else g - h
+        cm = self.c(draw["c"], diff)
+        return cm + q(draw["q"], diff - cm)
 
     def message_bits_aot(self, q, wleaf_like):
-        return _bits_aot(self.c, wleaf_like) + _bits_aot(q, wleaf_like)
+        return bits_aot(self.c, wleaf_like) + bits_aot(q, wleaf_like)
 
     def apply(self, wgrads, m, m_bar, h, h_bar, aux):
         # h and h_bar are updated IN PLACE (the reference rebinds them):
